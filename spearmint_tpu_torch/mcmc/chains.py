@@ -1,0 +1,145 @@
+"""GP hyperparameter MCMC over a batch of chains.
+
+JAX counterpart: ``spearmint_tpu/mcmc/chains.py``.  The reference order of
+operations, kept exactly:
+
+  1. jointly slice-sample (mean, amp2[, noise]) along a random direction,
+     with flat-in-bounds mean, lognormal amp2, horseshoe noise priors;
+  2. component-wise slice-sample the ARD length scales under a tophat
+     (0, max_ls] prior.
+
+Chains are a leading batch axis of ``GPHypers``; the GP log-marginal is
+carried across the joint → ls → next-sweep sequence (``sample_hypers_lp``)
+so each move skips its initial evaluation.  The band-mode joint move
+(``band_joint``) is not ported (ROADMAP A11) and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from spearmint_tpu_torch.core import linalg, priors
+from spearmint_tpu_torch.core.kernels import matern52
+from spearmint_tpu_torch.core.likelihood import GPHypers, log_marginal
+from spearmint_tpu_torch.mcmc.slice import slice_sample
+
+
+class MCMCConfig(NamedTuple):
+    """Static sampler configuration."""
+
+    noiseless: bool = False
+    max_ls: float = priors.MAX_LS
+    noise_scale: float = priors.NOISE_SCALE
+    amp2_scale: float = priors.AMP2_SCALE
+    kernel: Callable = matern52
+    marginal: Callable = log_marginal
+    band_joint: bool = False       # not ported (ROADMAP A11): raises
+
+
+def init_hypers(y: torch.Tensor, mask: torch.Tensor, ndim: int) -> GPHypers:
+    """Reference ``_real_init`` state of ONE chain (unbatched fields):
+    ls=1, mean=mean(y), amp2=std(y)+1e-4, noise=1e-3."""
+    return GPHypers(
+        mean=linalg.masked_mean(y, mask),
+        amp2=linalg.masked_std(y, mask) + 1e-4,
+        noise=torch.full((), priors.DEFAULT_NOISE, dtype=y.dtype,
+                         device=y.device),
+        ls=torch.ones(ndim, dtype=y.dtype, device=y.device),
+    )
+
+
+def _joint_logprob(vec, x, y, mask, ls, config: MCMCConfig):
+    """Log posterior of (mean, amp2[, noise]) [K, 2|3] at fixed ls [K, D]."""
+    mean, amp2 = vec[:, 0], vec[:, 1]
+    noise = (torch.full_like(mean, priors.DEFAULT_NOISE) if config.noiseless
+             else vec[:, 2])
+    valid = (priors.mean_in_bounds(mean, linalg.masked_min(y, mask),
+                                   linalg.masked_max(y, mask))
+             & (amp2 > 0.0) & (noise > 0.0))
+    amp2_s = torch.where(amp2 > 0.0, amp2, 1.0)
+    noise_s = torch.where(noise > 0.0, noise, 1.0)
+    lp = config.marginal(x, y, mask, GPHypers(mean, amp2_s, noise_s, ls),
+                         config.kernel)
+    lp = lp + _joint_prior_terms(amp2_s, noise_s, config)
+    return torch.where(valid, lp, float("-inf"))
+
+
+def _ls_logprob(ls, x, y, mask, hypers: GPHypers, config: MCMCConfig):
+    """Log posterior of ARD length scales [K, D] under the tophat prior."""
+    valid = priors.ls_in_bounds(ls, config.max_ls)
+    ls_s = torch.clamp(ls, 1e-6, config.max_ls)
+    lp = config.marginal(
+        x, y, mask, GPHypers(hypers.mean, hypers.amp2, hypers.noise, ls_s),
+        config.kernel)
+    return torch.where(valid, lp, float("-inf"))
+
+
+def _joint_prior_terms(amp2, noise, config: MCMCConfig):
+    """The prior terms separating the joint-move log posterior from the
+    bare GP log-marginal at an in-bounds state."""
+    t = priors.lognormal_amp2_term(amp2, config.amp2_scale)
+    if not config.noiseless:
+        t = t + priors.horseshoe_logpdf(noise, config.noise_scale)
+    return t
+
+
+def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
+                     lp_mar: torch.Tensor, x, y, mask,
+                     config: MCMCConfig = MCMCConfig()):
+    """One full sweep of every chain, carrying the GP log-marginal.
+
+    ``lp_mar`` [K] is ``config.marginal`` at ``hypers``.  The joint move's
+    log posterior at the current state is lp_mar + prior terms; the ls
+    move's at the post-joint state is the joint move's accepted lp minus
+    the same terms.  Returns (hypers', lp_mar')."""
+    if config.band_joint:
+        raise NotImplementedError(
+            "band_joint (ops/band) is not ported yet: ROADMAP A11")
+    if config.noiseless:
+        vec0 = torch.stack([hypers.mean, hypers.amp2], dim=1)
+    else:
+        vec0 = torch.stack([hypers.mean, hypers.amp2, hypers.noise], dim=1)
+
+    def joint_lp(vec):
+        return _joint_logprob(vec, x, y, mask, hypers.ls, config)
+
+    lp0_joint = lp_mar + _joint_prior_terms(hypers.amp2, hypers.noise,
+                                            config)
+    vec, lp_joint = slice_sample(gen, vec0, joint_lp, compwise=False,
+                                 lp0=lp0_joint)
+    mean, amp2 = vec[:, 0], vec[:, 1]
+    noise = (torch.full_like(mean, priors.DEFAULT_NOISE) if config.noiseless
+             else vec[:, 2])
+    mid = GPHypers(mean, amp2, noise, hypers.ls)
+
+    def ls_lp(ls):
+        return _ls_logprob(ls, x, y, mask, mid, config)
+
+    lp0_ls = lp_joint - _joint_prior_terms(amp2, noise, config)
+    ls, lp_ls = slice_sample(gen, hypers.ls, ls_lp, compwise=True,
+                             lp0=lp0_ls)
+    return GPHypers(mean, amp2, noise, ls), lp_ls
+
+
+def marginal_at(x, y, mask, hypers: GPHypers, config: MCMCConfig):
+    """One explicit carry-seed evaluation of ``config.marginal``."""
+    return config.marginal(x, y, mask, hypers, config.kernel)
+
+
+def sample_hypers(gen, hypers: GPHypers, x, y, mask,
+                  config: MCMCConfig = MCMCConfig()) -> GPHypers:
+    """One full sweep of every chain, re-evaluating the marginal first."""
+    lp_mar = marginal_at(x, y, mask, hypers, config)
+    out, _ = sample_hypers_lp(gen, hypers, lp_mar, x, y, mask, config)
+    return out
+
+
+def burnin(gen, hypers: GPHypers, x, y, mask, steps: int,
+           config: MCMCConfig = MCMCConfig()) -> GPHypers:
+    """Reference burn-in: ``steps`` carried sweeps of every chain."""
+    lp = marginal_at(x, y, mask, hypers, config)
+    for _ in range(steps):
+        hypers, lp = sample_hypers_lp(gen, hypers, lp, x, y, mask, config)
+    return hypers
