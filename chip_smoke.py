@@ -14,10 +14,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               flagship pad [10, 5120, 5120], the pending pad
               [10, 5248, 5248], the chooser's pad [12, 16, 16] with one
               non-PSD lane, and a ragged [3, 1000, 1000] with one non-PSD
-              lane, each held against its plain PyTorch version and a
-              float64 ``torch.linalg`` oracle; timed at the flagship pad
-              (CUDA events) beside the plain version, the nearest PyTorch
-              library calls and the bound;
+              lane; B4a and B4b (the unshifted kernel, on K = M + diag(d)
+              assembled in float32) at [10, 5120, 5120], [12, 16, 16] and
+              [3, 1000, 1000] with the same non-PSD lanes; each held
+              against its plain PyTorch version and a float64
+              ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
+              events) beside the plain version, the nearest PyTorch
+              library calls and the bound.  Then B1-B3 on the flagship's
+              own M-form and B4a on the constraint covariance's own form
+              (pad 5120, ls = 1, no noise term), against float64;
   4. check    EI and the log-marginal at fixed hyperparameters on a small
               input (n=1000) against float64 dense math;
   5. flagship ``suggest_step`` at n=5000 (pad 5120), d=2, 10 chains, 2000
@@ -28,17 +33,30 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               EI, and n_ok equal to the chains less the samples whose
               float32 pending covariance is indefinite (recomputed, beside
               a float64 one that must be positive definite);
-  7. chooser  the port's GPEIOptChooser on Branin over a 300-point grid,
-              16 evaluations, seed 2, best < 3.0.
+  7. constrained  ``suggest_step_constrained`` on the constrained preset
+              (n=5000, pad 5120, 10 chains, 2048 candidates, a quarter of
+              the points invalid), one warm-up and two timed reps: B1, B2,
+              B3 and B4a launched, finite acquisition, and n_ok equal to 10
+              less the samples whose value or constraint matrix a float64
+              Cholesky of the same float32 matrix finds indefinite; the
+              per-stage seconds, and ``torch.profiler`` over one
+              suggestion and over one constraint sweep;
+  8. chooser  the port's GPEIOptChooser on Branin over a 300-point grid,
+              16 evaluations, seed 2, best < 3.0;
+  9. constrained_chooser  the port's GPConstrainedEIChooser on a 40-point
+              grid with 12 completions (violations where x0 > 0.5), three
+              ``next`` calls by three chooser objects resuming one state
+              file: each returns an index or an (acq, x) tuple, B4a is
+              launched (pad 16), and n_ok > 0.
 
 Every line before the last three is one JSON record.  Then come the
-``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the final
-``{"ok": true, "device": ...}`` line.  Exits non-zero, printing no result,
-when no CUDA device is present.
+``{"kernels": [...]}`` line (each kernel's launches on every path), the
+``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}`` line.
+Exits non-zero, printing no result, when no CUDA device is present.
 
     python3 chip_smoke.py --branin-seeds 0,1,2
 
-runs only the build and phase 7, once per seed, and prints one record
+runs only the build and phase 8, once per seed, and prints one record
 each (no result line): the chooser's success rate on the card.
 """
 
@@ -63,6 +81,12 @@ FLAGSHIP = dict(n=5000, d=2, chains=10, cands=2000)
 # bench.py PRESETS["async_large"]
 ASYNC_LARGE = dict(n=5000, d=2, chains=10, cands=2048, n_pending=64,
                    n_fantasies=100, grid_subset=5, lbfgs_iters=10)
+# the kernels (wrappers) every suggestion runs; the constrained path adds
+# logdet_q (B4a)
+FLAGSHIP_PATH = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
+# bench.py PRESETS["constrained"], as time_tpu_constrained sets it up
+CONSTRAINED = dict(n=5000, d=2, chains=10, cands=2048, grid_subset=5,
+                   lbfgs_iters=10, p_invalid=0.25)
 
 
 def emit(rec: dict) -> None:
@@ -224,6 +248,114 @@ def hold_case(torch, gk, case, k, n, seed, nan_lane=None):
             "B3": absmax(x3, p_x)}
 
 
+def hold_case_b4(torch, gk, case, k, n, seed, nan_lane=None):
+    """B4a and B4b on K = M + diag(d) of ``hold_case``'s input, assembled
+    in float32, held against their plain versions and a float64 oracle of
+    the same float32 K at hold_case's TOL; the ``nan_lane`` (M negated)
+    must give NaN in its own ld and q only.  Fails on a miss; returns
+    each kernel's max absolute error to its plain version."""
+    m, d, r = well_conditioned(torch, k, n, seed)
+    if nan_lane is not None:
+        m[nan_lane] = -m[nan_lane]
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    del m, d
+    ld_a, q_a = gk.logdet_q(kmat, r)
+    ld_b, q_b, l_b, w_b = gk.factor_logdet_q(kmat, r)
+    torch.cuda.synchronize()
+    good = torch.tensor([i != nan_lane for i in range(k)], device="cuda")
+    nan_ok = (nan_lane is None or all(
+        bool(torch.isnan(v[nan_lane])) for v in (ld_a, q_a, ld_b, q_b)))
+    ld_a, q_a, ld_b, q_b, l_b, w_b = (v[good] for v in
+                                      (ld_a, q_a, ld_b, q_b, l_b, w_b))
+    kmat, r = kmat[good].contiguous(), r[good].contiguous()
+    p_ld, p_q, p_l, p_w = gk.factor_logdet_q_ref(kmat, r)
+    o_ld, o_q, o_l, o_w, info = oracle_factor(torch, kmat, torch.zeros_like(r),
+                                              r)
+    if int(info.max()) != 0:
+        fail(f"{case}: float64 oracle Cholesky failed on the SPD input")
+    err = {
+        "B4a": {"ld_rel_plain": rel(ld_a, p_ld), "q_rel_plain": rel(q_a, p_q),
+                "ld_rel_f64": rel(ld_a, o_ld), "q_rel_f64": rel(q_a, o_q)},
+        "B4b": {"L_abs_plain": absmax(l_b, p_l), "w_abs_plain": wrel(w_b, p_w),
+                "L_abs_f64": absmax(l_b, o_l), "w_abs_f64": wrel(w_b, o_w),
+                "ld_rel_plain": rel(ld_b, p_ld), "q_rel_plain": rel(q_b, p_q),
+                "ld_rel_f64": rel(ld_b, o_ld), "q_rel_f64": rel(q_b, o_q)},
+    }
+    upper_max = float(torch.triu(l_b, 1).abs().max())
+    finite = bool(torch.isfinite(l_b).all())
+    emit({"phase": "kernels", "case": case + "_unshifted", "shape": [k, n, n],
+          "nan_lane": nan_lane, "nan_lane_isolated": nan_ok,
+          "other_lanes_finite": finite, "L_upper_max": upper_max,
+          "errors": err, "tolerance": TOL})
+    misses = [f"{b} {key}={v}" for b, e in err.items() for key, v in e.items()
+              if v > TOL[key.split("_")[0] + "_" + key.split("_")[1]]]
+    if misses or not nan_ok or not finite or upper_max != 0.0:
+        fail(f"{case} (B4): {misses} nan_lane_isolated={nan_ok} "
+             f"finite={finite} L_upper_max={upper_max}")
+    return {"B4a": max(absmax(ld_a, p_ld), absmax(q_a, p_q)),
+            "B4b": max(absmax(ld_b, p_ld), absmax(q_b, p_q),
+                       absmax(l_b, p_l), absmax(w_b, p_w))}
+
+
+def constraint_form_case(torch, gk):
+    """B4a on the covariance the constraint GP's ls move factors at the
+    preset's start: ``_constraint_cov`` of bench.py's points at pad 5120,
+    ls = 1, amp2 = 1, jitter ``_effective_jitter(5000)`` = 6.2e-4 and no
+    noise term, every lane alike; r = ten draws from the float64 prior
+    (what the latents' ESS proposes).  Reports ld and q against a float64
+    factorization of the same float32 K, beside the float32 library
+    Cholesky's error and cond(K)·eps; fails unless ld and q are finite and
+    within cond(K)·eps/100 of float64 (relative).  cond(K)·eps bounds the
+    error of any float32 factorization; the hundredth is what B4a and
+    the float32 library Cholesky both met on the H100 (cond ≈ 6.7e6:
+    q within 6e-4 and 1.6e-3, against 8e-3)."""
+    from spearmint_tpu_torch.core.likelihood import _effective_jitter
+    from spearmint_tpu_torch.engine.constrained import _constraint_cov
+
+    n, pad, k = CONSTRAINED["n"], 5120, CONSTRAINED["chains"]
+    x, _, _ = make_problem(n, CONSTRAINED["d"], CONSTRAINED["cands"])
+    xp = np.zeros((pad, 2), np.float32); xp[:n] = x
+    mask = torch.tensor(np.arange(pad) < n, device="cuda")
+    one = torch.ones(1, device="cuda")
+    k1 = _constraint_cov(torch.tensor(xp, device="cuda"), mask,
+                         torch.ones(1, 2, device="cuda"), one)[0]
+    l64 = torch.linalg.cholesky(k1.double())
+    eig = torch.linalg.eigvalsh(k1.double())
+    cond = float(eig[-1] / eig[0])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    r64 = l64 @ torch.randn(pad, k, generator=gen, dtype=torch.float64,
+                            device="cuda")
+    r = torch.where(mask[:, None], r64, 0.0).T.float().contiguous()
+    w = torch.linalg.solve_triangular(l64, r.T.double(), upper=False)
+    o_ld = torch.log(torch.diagonal(l64)).sum().expand(k)
+    o_q = (w * w).sum(0)
+    del l64, w, r64
+    kmat = k1.expand(k, pad, pad).contiguous()
+    ld, q = gk.logdet_q(kmat, r)
+    p_ld, p_q = gk.logdet_q_ref(kmat, r)
+    lib_l, lib_info = torch.linalg.cholesky_ex(k1)
+    lib_w = torch.linalg.solve_triangular(lib_l, r.T, upper=False)
+    lib_ld = torch.log(torch.diagonal(lib_l)).sum().expand(k)
+    lib_q = (lib_w * lib_w).sum(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    tol = cond * eps / 100.0
+    err = {"ld_rel_f64": rel(ld, o_ld), "q_rel_f64": rel(q, o_q),
+           "ld_rel_plain": rel(ld, p_ld), "q_rel_plain": rel(q, p_q),
+           "library_ld_rel_f64": rel(lib_ld, o_ld),
+           "library_q_rel_f64": rel(lib_q, o_q),
+           "library_info": int(lib_info)}
+    emit({"phase": "kernels", "case": "constraint_cov_form",
+          "shape": [k, pad, pad], "jitter": _effective_jitter(n),
+          "cond": cond, "cond_eps": cond * eps, "eig_min": float(eig[0]),
+          "eig_max": float(eig[-1]), "q_f64": float(o_q[0]),
+          "ld_f64": float(o_ld[0]), "errors": err,
+          "tolerance": {"ld_rel_f64": tol, "q_rel_f64": tol}})
+    finite = bool(torch.isfinite(ld).all() and torch.isfinite(q).all())
+    if not finite or err["ld_rel_f64"] > tol or err["q_rel_f64"] > tol:
+        fail(f"constraint covariance form: finite={finite} {err} tol={tol}")
+
+
 def check_kernels(torch, gk):
     """B1-B3 against plain versions and float64 at every shape the main
     paths give them, and timed at the flagship shape; returns per-kernel
@@ -235,11 +367,15 @@ def check_kernels(torch, gk):
     # and a ragged width with a non-PSD lane
     max_abs = hold_case(torch, gk, "flagship_shape_well_conditioned",
                         10, 5120, seed=0)
+    max_abs.update(hold_case_b4(torch, gk, "flagship_shape_well_conditioned",
+                                10, 5120, seed=0))
     for case, k, n, seed, nan_lane in (
             ("pending_pad_well_conditioned", 10, 5248, 2, None),
             ("chooser_pad_nan_lane", 12, 16, 3, 5),
             ("ragged_nan_lane", 3, 1000, 1, 0)):
         hold_case(torch, gk, case, k, n, seed, nan_lane)
+        if n != 5248:   # B4 runs at the constraint pads only
+            hold_case_b4(torch, gk, case, k, n, seed, nan_lane)
 
     # timing at the flagship shape: kernel, plain version, library calls
     n, k = 5120, 10
@@ -249,6 +385,9 @@ def check_kernels(torch, gk):
     bytes_b1 = 4.0 * (k * n * n + 2 * k * n + 2 * k)
     bytes_b2 = 4.0 * (2 * k * n * n + 3 * k * n + 2 * k)
     bytes_b3 = 4.0 * (2 * k * n * n)
+    bytes_b4a = 4.0 * (k * n * n + k * n + 2 * k)
+    bytes_b4b = 4.0 * (2 * k * n * n + 2 * k * n + 2 * k)
+    kmat = (m + torch.diag_embed(d)).contiguous()
 
     def bound(b):
         t_op, t_b = flop / PEAK_F32_FLOPS, b / PEAK_BYTES
@@ -257,6 +396,12 @@ def check_kernels(torch, gk):
 
     def lib_factor():
         l, _ = torch.linalg.cholesky_ex(m + torch.diag_embed(d))
+        w = torch.linalg.solve_triangular(l, r[..., None], upper=False)
+        return torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1), \
+            (w * w).sum((-2, -1)), l, w
+
+    def lib_factor_k():
+        l, _ = torch.linalg.cholesky_ex(kmat)
         w = torch.linalg.solve_triangular(l, r[..., None], upper=False)
         return torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1), \
             (w * w).sum((-2, -1)), l, w
@@ -274,13 +419,19 @@ def check_kernels(torch, gk):
                cuda_ms(torch, lambda: gk.tri_inverse_ref(l2), 1),
                cuda_ms(torch, lambda: torch.linalg.solve_triangular(
                    l2, eye, upper=False), 3), bound(bytes_b3)),
+        "B4a": (cuda_ms(torch, lambda: gk.logdet_q(kmat, r), 3),
+                cuda_ms(torch, lambda: gk.logdet_q_ref(kmat, r), 1),
+                cuda_ms(torch, lib_factor_k, 3), bound(bytes_b4a)),
+        "B4b": (cuda_ms(torch, lambda: gk.factor_logdet_q(kmat, r), 3),
+                cuda_ms(torch, lambda: gk.factor_logdet_q_ref(kmat, r), 1),
+                cuda_ms(torch, lib_factor_k, 3), bound(bytes_b4b)),
     }
     for name, (ms, plain_ms, lib_ms, (bnd, by)) in t.items():
         records[name] = dict(max_abs_err=max_abs[name], ms=ms,
                              plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                              library_ms=lib_ms)
     emit({"phase": "kernel_times", "shape": [k, n, n], "times": records})
-    del m, d, r, l2, eye
+    del m, d, r, l2, eye, kmat
 
     # (b) the flagship's own M-form (cond ≈ 1e6): held at the level the
     # sampler reads, lp = −ld − q/2, relative 1e-3 (the JAX package's TPU
@@ -311,6 +462,7 @@ def check_kernels(torch, gk):
     if err["X_rel_to_max"] > 1e-3:
         fail(f"flagship M-form X {err}")
     del m, d, r, l2, x3, o_l, x_o
+    constraint_form_case(torch, gk)
     return records
 
 
@@ -477,7 +629,7 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
                  f"shape={tuple(res.ei.shape)}")
     counts = dict(gk.launches)
     peak_bytes = torch.cuda.max_memory_allocated()
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in FLAGSHIP_PATH) <= 0:
         fail(f"{label}: a kernel was never launched: {counts}")
     witness = []
     for i, (n_ok, samples) in enumerate(zip(oks, rep_samples)):
@@ -533,6 +685,125 @@ def profile_step(torch, fn, top=8):
 
 
 # --------------------------------------------------------------- phase 7
+def constrained_problem():
+    """time_tpu_constrained's set-up: bench.py's make_problem, a quarter
+    of the points invalid (numpy RandomState(3)), y = 0 where invalid."""
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+
+    n, d, cands = (CONSTRAINED[k] for k in ("n", "d", "cands"))
+    x, y, cand = make_problem(n, d, cands)
+    valid = np.random.RandomState(3).rand(n) > CONSTRAINED["p_invalid"]
+    pad = pad_bucket(n)
+    xp = np.zeros((pad, d), np.float32); xp[:n] = x
+    yp = np.zeros(pad, np.float32); yp[:n] = np.where(valid, y, 0.0)
+    vmask = np.zeros(pad, bool); vmask[:n] = valid
+    return (xp, yp, vmask, np.arange(pad) < n, cand.astype(np.float32),
+            np.ones(cands, bool))
+
+
+def constrained_witness(torch, xp, vmask, omask, samples, c_samples):
+    """Per sample, the float64 Cholesky info of the very float32 matrices
+    the two caches hand kernel B2: the value GP's M + diag(dadd/amp2)
+    (dadd = noise on valid rows, 1 on the others) and the constraint GP's
+    M + diag(where(observed, 0, 1)/amp2).  A nonzero info is the witness
+    that the float32 matrix is indefinite."""
+    from spearmint_tpu_torch.core.likelihood import unit_cov_matrix
+
+    x = torch.tensor(xp, device="cuda")
+    out = {}
+    for fam, mask, ls, amp2, dadd in (
+            ("value", vmask, samples.ls, samples.amp2,
+             lambda m: torch.where(m, samples.noise[:, None], 1.0)),
+            ("constraint", omask, c_samples.ls, c_samples.amp2,
+             lambda m: torch.where(m, 0.0, 1.0).expand(len(amp2), -1))):
+        m = torch.tensor(mask, device="cuda")
+        mat = unit_cov_matrix(x, m, ls) + torch.diag_embed(
+            dadd(m) / amp2[:, None])
+        out[fam] = torch.linalg.cholesky_ex(mat.double()).info.tolist()
+        del mat
+    out["indefinite"] = [a != 0 or b != 0 for a, b in zip(out["value"],
+                                                         out["constraint"])]
+    return out
+
+
+def run_constrained(torch, gk):
+    """The constrained preset: one warm-up and two timed reps, each adopting
+    the previous rep's chain states (as bench.py does).  Fails unless the
+    acquisition is finite, B1, B2, B3 and B4a were launched, and every
+    rep's n_ok equals 10 less the witnessed samples.  Then one rep with
+    stage timing, one under ``torch.profiler``, and one constraint sweep
+    under ``torch.profiler``."""
+    from spearmint_tpu_torch.core.kernels import matern52
+    from spearmint_tpu_torch.engine.constrained import (
+        ConstraintState, _sample_constraint, suggest_step_constrained,
+    )
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states,
+    )
+
+    c = CONSTRAINED
+    chains, d, cands = c["chains"], c["d"], c["cands"]
+    args = constrained_problem()
+    xp, yp, vmask, omask = args[:4]
+    pad = len(yp)
+    hypers = init_chain_states(torch.tensor(yp, device="cuda"),
+                               torch.tensor(vmask, device="cuda"), d, chains)
+    cons = ConstraintState(torch.ones(chains, d, device="cuda"),
+                           torch.ones(chains, device="cuda"),
+                           torch.zeros(chains, pad, device="cuda"))
+    cfg = SuggestConfig(mcmc_iters=1, grid_subset=c["grid_subset"],
+                        lbfgs_iters=c["lbfgs_iters"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def step(stage_times=None):
+        return suggest_step_constrained(gen, hypers, cons, *args, cfg,
+                                        device="cuda", stage_times=stage_times)
+
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    times, oks, witness = [], [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        hypers, cons = res.hypers, res.constraint
+        finite = bool(torch.isfinite(res.acq).all()
+                      and torch.isfinite(res.x_opt).all()
+                      and torch.isfinite(res.acq_opt))
+        if not finite or res.acq.shape != (cands,):
+            fail(f"constrained rep {i}: finite={finite} "
+                 f"shape={tuple(res.acq.shape)}")
+        oks.append(int(res.n_ok))
+        witness.append(constrained_witness(torch, xp, vmask, omask,
+                                           res.samples, res.c_samples))
+    counts = dict(gk.launches)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if min(counts[k] for k in FLAGSHIP_PATH + ("logdet_q",)) <= 0:
+        fail(f"constrained: a kernel of the path was never launched: {counts}")
+    for i, (n_ok, w) in enumerate(zip(oks, witness)):
+        expected = chains - sum(w["indefinite"])
+        if n_ok != expected or n_ok < 1:
+            fail(f"constrained rep {i}: n_ok={n_ok}, expected {expected}; {w}")
+    stages = {}
+    step(stages)
+    prof = profile_step(torch, step, top=14)
+    z = torch.where(torch.tensor(vmask, device="cuda"), 1.0, -1.0)
+    sweep = profile_step(torch, lambda: _sample_constraint(
+        gen, cons, torch.tensor(xp, device="cuda"), z,
+        torch.tensor(omask, device="cuda"), matern52, cfg.max_ls), top=14)
+    return dict(phase="constrained", n=c["n"], pad=pad, chains=chains,
+                cands=cands, n_valid=int(vmask.sum()), reps=3,
+                latency_s=times, median_s=float(np.median(times[1:])),
+                launches=counts, n_ok=oks, acq_finite=True,
+                witness=witness, max_memory_allocated=peak_bytes,
+                stage_s=stages, profile=prof, constraint_sweep_profile=sweep,
+                c_ls=cons.ls.tolist(), c_amp2=cons.amp2.tolist(),
+                x_opt=res.x_opt.tolist(), acq_opt=float(res.acq_opt))
+
+
+# --------------------------------------------------------------- phase 8
 def branin_unit(u):
     x = 15.0 * u[0] - 5.0
     y = 15.0 * u[1]
@@ -587,8 +858,68 @@ def run_chooser(torch, gk):
     if rec["evaluations"] != 16 or not rec["best"] < 3.0 \
             or not rec["state_file"]:
         fail(f"chooser loop: {rec}")
-    if min(rec["launches"].values()) <= 0:
+    if min(rec["launches"][k] for k in FLAGSHIP_PATH) <= 0:
         fail(f"chooser loop: a kernel was never launched: {rec}")
+    return rec
+
+
+# --------------------------------------------------------------- phase 9
+def run_constrained_chooser(torch, gk):
+    """Three ``next`` calls of the port's GPConstrainedEIChooser on the
+    problem of tests/test_constrained.py (40-point grid, 12 completions,
+    violations where x0 > 0.5), each by a new chooser object that resumes
+    the state file; each suggestion is evaluated and appended."""
+    from spearmint_tpu_torch.choosers import get_chooser
+
+    def objective(u):
+        return np.nan if u[0] > 0.5 else 2.0 * u[1]
+
+    rng = np.random.RandomState(1)
+    grid = [p for p in rng.rand(40, 2)]
+    values = [np.nan] * 40
+    done = list(range(12))
+    for i in done:
+        values[i] = objective(grid[i]) + 0.1 * rng.randn()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    outs, n_oks = [], []
+    with tempfile.TemporaryDirectory() as expt:
+        for _ in range(3):
+            chooser = get_chooser(
+                "GPConstrainedEIChooser", expt,
+                "mcmc_iters=4,chains=3,burnin=15,grid_subset=3,"
+                "lbfgs_iters=8,seed=0,device=cuda")
+            cand = [i for i in range(len(grid)) if i not in done]
+            sel = chooser.next(np.array(grid), np.array(values),
+                               np.zeros(len(grid)), np.array(cand),
+                               np.array([], int), np.array(done))
+            n_oks.append([e["n_ok"] for e in chooser.events.read()
+                          if e["kind"] == "suggest"][-1])
+            if isinstance(sel, tuple):
+                outs.append(["tuple", float(sel[0]), list(sel[1])])
+                ok = (np.isfinite(sel[0]) and bool(np.all(
+                    (sel[1] >= 0) & (sel[1] <= 1))))
+                grid.append(np.asarray(sel[1]))
+                values.append(np.nan)
+                sel = len(grid) - 1
+            else:
+                outs.append(["index", int(sel)])
+                ok = isinstance(sel, int) and sel in cand
+            if not ok:
+                fail(f"constrained chooser returned {outs[-1]}")
+            values[sel] = objective(grid[sel])
+            done.append(sel)
+        with np.load(os.path.join(
+                expt, "GPConstrainedEIChooser_state.npz")) as z:
+            keys = sorted(z.files)
+    rec = dict(phase="constrained_chooser", calls=outs, n_ok=n_oks,
+               launches=dict(gk.launches), state_keys=keys,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if rec["launches"]["logdet_q"] <= 0 or min(n_oks) <= 0 \
+            or "c_ff" not in keys:
+        fail(f"constrained chooser: {rec}")
+    return rec
 
 
 def main(argv) -> int:
@@ -629,22 +960,38 @@ def main(argv) -> int:
     emit(flag)
     pend = run_suggest(torch, gk, "pending_async_large", 1, **ASYNC_LARGE)
     emit(pend)
-    run_chooser(torch, gk)
+    cons = run_constrained(torch, gk)
+    emit(cons)
+    paths = {"flagship": flag["launches"], "pending": pend["launches"],
+             "constrained": cons["launches"],
+             "branin_chooser": run_chooser(torch, gk)["launches"],
+             "constrained_chooser": run_constrained_chooser(
+                 torch, gk)["launches"]}
 
+    src = "spearmint_tpu_torch/ops/csrc/"
+    pallas = "spearmint_tpu/ops/pallas_gp.py:"
+    # id: (wrapper, source, TPU kernel, the path whose run gives launches)
     replaces = {
-        "B1": ("shifted_logdet_q", "spearmint_tpu_torch/ops/csrc/"
-               "shifted_chol.cu", "spearmint_tpu/ops/pallas_gp.py:930"),
-        "B2": ("shifted_factor_logdet_q", "spearmint_tpu_torch/ops/csrc/"
-               "shifted_chol.cu", "spearmint_tpu/ops/pallas_gp.py:777"),
-        "B3": ("tri_inverse", "spearmint_tpu_torch/ops/csrc/"
-               "tri_inverse.cu", "spearmint_tpu/ops/pallas_gp.py:816"),
+        "B1": ("shifted_logdet_q", src + "shifted_chol.cu", pallas + "930",
+               "flagship"),
+        "B2": ("shifted_factor_logdet_q", src + "shifted_chol.cu",
+               pallas + "777", "flagship"),
+        "B3": ("tri_inverse", src + "tri_inverse.cu", pallas + "816",
+               "flagship"),
+        "B4a": ("logdet_q", src + "shifted_chol.cu", pallas + "896",
+                "constrained"),
+        "B4b": ("factor_logdet_q", src + "shifted_chol.cu", pallas + "743",
+                None),
     }
     kernels = []
-    for key, (name, src, rep) in replaces.items():
+    for key, (name, source, rep, main_path) in replaces.items():
         kernels.append({
-            "name": name, "id": key, "route": "cuda", "source": src,
-            "replaces": rep, "launches": flag["launches"][name],
-            "launches_pending": pend["launches"][name],
+            "name": name, "id": key, "route": "cuda", "source": source,
+            "replaces": rep,
+            "launches": paths[main_path][name] if main_path else 0,
+            "main_path": main_path or "none: no path of the port calls "
+                                      "B4b (nor of the JAX package)",
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             **records[key]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,18 +3,19 @@
 A second package beside the JAX one (``spearmint_tpu/``, the reference):
 the same fully-Bayesian GP-EI suggestion (slice-sampled Matérn-5/2 ARD
 hyperparameters, EI averaged over samples, pending-job fantasies, batched
-projected L-BFGS), written in PyTorch for one NVIDIA H100.  The three
-Cholesky-family Pallas kernels of the hot path are CUDA C++ kernels
-written by hand for ``sm_90a`` (``ops/csrc``), with plain PyTorch versions
-beside them that serve CPU tensors (``ops/gp_kernels``).
+projected L-BFGS) and its constrained form (a probit latent-GP classifier
+of NaN-valued violations weighting EI), written in PyTorch for one NVIDIA
+H100.  The Cholesky-family Pallas kernels of these paths are CUDA C++
+kernels written by hand for ``sm_90a`` (``ops/csrc``), with plain PyTorch
+versions beside them that serve CPU tensors (``ops/gp_kernels``).
 
 Layout mirrors the JAX package:
   core/     kernels, masked linear algebra, GP log-marginal, priors
-  mcmc/     batched slice sampler, chain states
+  mcmc/     batched slice sampler, elliptical slice sampler, chain states
   acquire/  EI, fantasization, batched L-BFGS-B
-  engine/   the suggestion step
+  engine/   the suggestion step, the constrained suggestion step
   ops/      the CUDA kernels, their plain versions and their build
-  choosers/ GPEIOptChooser, GPEIChooser
+  choosers/ GPEIOptChooser, GPEIChooser, GPConstrainedEIChooser
   store/ utils/  locking, argument parsing, event log
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is asked for; with

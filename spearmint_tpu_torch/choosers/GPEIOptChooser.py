@@ -105,17 +105,24 @@ class GPEIOptChooser:
             if os.path.exists(self.state_file):
                 with np.load(self.state_file) as z:
                     if z["ls"].shape == (self.chains, ndim):
-                        self._hypers = hypers_from_numpy(z, self.device)
+                        self._read_state(z)
                         self._key_state = int(z["key_state"])
                         self._burned_in = bool(z["burned_in"])
                         return
         self._key_state = self.seed
         self._burned_in = False
 
+    def _read_state(self, z):
+        """The chain states of an npz whose shapes fit (subclasses add)."""
+        self._hypers = hypers_from_numpy(z, self.device)
+
+    def _state_arrays(self) -> dict:
+        return hypers_to_numpy(self._hypers)
+
     def _save_state(self):
         with self.locker:
             tmp = self.state_file + ".tmp.npz"
-            np.savez(tmp, **hypers_to_numpy(self._hypers),
+            np.savez(tmp, **self._state_arrays(),
                      key_state=self._key_state, burned_in=self._burned_in)
             os.replace(tmp, self.state_file)
 
@@ -140,6 +147,16 @@ class GPEIOptChooser:
             inv = pad < 8192
         return chunk, bool(inv)
 
+    def _burn_chains(self, gen, hypers, x, y, mask):
+        """Reference _real_init: ``burnin`` fresh-marginal sweeps of every
+        chain before the first suggestion."""
+        from spearmint_tpu_torch.mcmc.chains import MCMCConfig, sample_hypers
+
+        mcfg = MCMCConfig(noiseless=self.noiseless)
+        for _ in range(self.burnin_steps):
+            hypers = sample_hypers(gen, hypers, x, y, mask, mcfg)
+        return hypers
+
     def _emit_suggest(self, latency, n_obs, n_pending, n_cand, **extra):
         self.events.emit(
             "suggest", chooser=type(self).__name__,
@@ -156,7 +173,6 @@ class GPEIOptChooser:
         from spearmint_tpu_torch.engine.suggest import (
             SuggestConfig, init_chain_states, suggest_step,
         )
-        from spearmint_tpu_torch.mcmc.chains import MCMCConfig, sample_hypers
 
         grid = np.asarray(grid)
         ndim = grid.shape[1]
@@ -212,12 +228,7 @@ class GPEIOptChooser:
         if self._hypers is None:
             self._hypers = init_chain_states(yt, mt, ndim, self.chains)
         if not self._burned_in and self.burnin_steps > 0:
-            # reference _real_init: fresh-marginal sweeps before the first
-            # suggestion
-            mcfg = MCMCConfig(noiseless=self.noiseless)
-            for _ in range(self.burnin_steps):
-                self._hypers = sample_hypers(gen, self._hypers, xt, yt, mt,
-                                             mcfg)
+            self._hypers = self._burn_chains(gen, self._hypers, xt, yt, mt)
             self._burned_in = True
 
         # mcmc_iters = samples PER SUGGESTION, spread across the chains

@@ -12,7 +12,8 @@ All three factor the SHIFTED unit matrix M + diag(dadd/amp2) and rescale
 analytically — one route for both devices, so the CPU tests run the same
 shift, rescale and padding arithmetic as the card; only the op underneath
 differs (the CUDA kernel for CUDA tensors, its plain version on the CPU,
-``ops/gp_kernels``).
+``ops/gp_kernels``).  ``chol_logdet_q`` takes an assembled K [K, N, N]
+and goes through the unshifted kernel the same way.
 """
 
 from __future__ import annotations
@@ -53,11 +54,24 @@ def mask_psd_matrix(k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def cholesky(k: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky with NaN (not an exception) on a non-PD input, as
-    XLA's.  Used only where the JAX package keeps a library Cholesky (the
-    small P×P pending factorization, acquire/fantasy.py)."""
+    XLA's.  Used only where the JAX package keeps XLA's Cholesky rather
+    than a Pallas kernel: the small P×P pending factorization
+    (acquire/fantasy.py), and in the constraint sweep the ESS prior factor
+    and the amp2 move's unit factor (engine/constrained.py)."""
     chol, info = torch.linalg.cholesky_ex(k)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(chol, float("nan")), chol)
+
+
+def masked_cholesky(k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a masked PSD matrix."""
+    return cholesky(mask_psd_matrix(k, mask))
+
+
+def logdet_from_chol(chol: torch.Tensor) -> torch.Tensor:
+    """½ log det K = Σ log diag(L) per lane.  Padded diagonal entries are
+    1 → 0."""
+    return torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
 
 
 def tri_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,6 +83,13 @@ def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve K x = b given K = L Lᵀ (b: [..., N, R])."""
     y = torch.linalg.solve_triangular(chol, b, upper=False)
     return torch.linalg.solve_triangular(chol.mT, y, upper=True)
+
+
+def chol_logdet_q(k, resid):
+    """(Σ log diag chol(K), rᵀK⁻¹r) per lane of an assembled K [K, N, N]
+    (padded rows identity, ``mask_psd_matrix``), resid [K, N] — kernel
+    B4a, the constraint-GP length-scale move's evaluation."""
+    return gp_kernels.logdet_q(k.contiguous(), resid.contiguous())
 
 
 def _shift(amp2, dadd):

@@ -86,12 +86,20 @@ def _groups(lead: int, chunk: int):
     return [slice(i, i + chunk) for i in range(0, lead, chunk)]
 
 
-def _take(h: GPHypers, sl) -> GPHypers:
-    return GPHypers(*(a[sl] for a in h))
+def _take(h, sl):
+    """Rows ``sl`` of every field of a state tuple (GPHypers and the like)."""
+    return type(h)(*(a[sl] for a in h))
 
 
 def _cat(parts):
-    return GPHypers(*(torch.cat(a, 0) for a in zip(*parts)))
+    return type(parts[0])(*(torch.cat(a, 0) for a in zip(*parts)))
+
+
+def _stack_iters(its):
+    """[iters] states of a [group] batch → one [group·iters] state,
+    chains-major (the JAX package's ``_flatten_samples``)."""
+    return type(its[0])(*(torch.stack(a, 1).reshape((-1,) + a[0].shape[1:])
+                          for a in zip(*its)))
 
 
 def _cat_caches(parts):
@@ -113,6 +121,42 @@ def _mark(stage_times, name, t0, dev):
     now = time.perf_counter()
     stage_times[name] = stage_times.get(name, 0.0) + now - t0
     return now
+
+
+def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig):
+    """``config.mcmc_iters`` carried sweeps of every chain, in groups of
+    ``chain_chunk``.  Returns (last states [chains], samples [S])."""
+    h_parts, s_parts = [], []
+    for sl in _groups(hypers.mean.shape[0], config.chain_chunk):
+        h = _take(hypers, sl)
+        lp = marginal_at(x, y, mask, h, config.mcmc)
+        its = []
+        for _ in range(config.mcmc_iters):
+            h, lp = sample_hypers_lp(gen, h, lp, x, y, mask, config.mcmc)
+            its.append(h)
+        h_parts.append(h)
+        s_parts.append(_stack_iters(its))
+    return _cat(h_parts), _cat(s_parts)
+
+
+def _value_caches(x, y, mask, flat: GPHypers, config: SuggestConfig):
+    """One posterior cache per sample (no pending jobs), in groups."""
+    return _cat_caches([
+        ei_mod.make_cache(x, y, mask, _take(flat, sl), config.kernel,
+                          with_inverse=config.explicit_inverse)
+        for sl in _groups(flat.mean.shape[0], config.chain_chunk)])
+
+
+def _refine(neg_fun, cand, masked, config: SuggestConfig):
+    """Batched projected L-BFGS on the unit box from the ``grid_subset``
+    best candidates of ``masked``; returns (best point, its value)."""
+    starts = cand[torch.topk(masked, min(config.grid_subset,
+                                         cand.shape[0])).indices]
+    box = torch.zeros(cand.shape[1], dtype=cand.dtype, device=cand.device)
+    res = minimize_lbfgs_b(neg_fun, starts, box, box + 1.0,
+                           iters=config.lbfgs_iters)
+    lane = torch.argmin(res.fun)
+    return res.x[lane], -res.fun[lane]
 
 
 def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
@@ -142,19 +186,7 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
     t0 = time.perf_counter()
 
     # ---- MCMC: chains batched, mcmc_iters carried sweeps ---------------
-    h_parts, s_parts = [], []
-    for sl in _groups(chains, config.chain_chunk):
-        h = _take(hypers, sl)
-        lp = marginal_at(x, y, mask, h, config.mcmc)
-        its = []
-        for _ in range(iters):
-            h, lp = sample_hypers_lp(gen, h, lp, x, y, mask, config.mcmc)
-            its.append(h)
-        h_parts.append(h)
-        # [group, iters] → chains-major samples
-        s_parts.append(GPHypers(*(torch.stack(a, 1).reshape(
-            (-1,) + a[0].shape[1:]) for a in zip(*its))))
-    h_last, flat = _cat(h_parts), _cat(s_parts)
+    h_last, flat = _sample_chains(gen, hypers, x, y, mask, config)
     s = chains * iters
     t0 = _mark(stage_times, "mcmc", t0, dev)
 
@@ -175,13 +207,10 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
             caches.append(ei_mod.make_cache_aug(
                 x_all, mask_all, y_augs, hs, kernel,
                 with_inverse=config.explicit_inverse))
+        cache = _cat_caches(caches)
     else:
         x_all, mask_all = x, mask
-        for sl in _groups(s, config.chain_chunk):
-            caches.append(ei_mod.make_cache(
-                x, y, mask, _take(flat, sl), kernel,
-                with_inverse=config.explicit_inverse))
-    cache = _cat_caches(caches)
+        cache = _value_caches(x, y, mask, flat, config)
     t0 = _mark(stage_times, "caches", t0, dev)
 
     # ---- EI over the candidates, NaN-robust average over samples -------
@@ -199,9 +228,6 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI --------
     if config.optimize:
-        ksub = min(config.grid_subset, cand.shape[0])
-        starts = cand[torch.topk(ei_masked, ksub).indices]
-
         def neg_avg_ei(pts):
             eis = ei_mod.ei_from_cache(cache, x_all, mask_all, pts, kernel)
             if eis.ndim == 3:
@@ -209,14 +235,7 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
             eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
             return -eis.sum(0) / n_ok
 
-        dim = cand.shape[1]
-        res = minimize_lbfgs_b(neg_avg_ei, starts,
-                               torch.zeros(dim, dtype=cand.dtype, device=dev),
-                               torch.ones(dim, dtype=cand.dtype, device=dev),
-                               iters=config.lbfgs_iters)
-        best_lane = torch.argmin(res.fun)
-        x_opt = res.x[best_lane]
-        ei_opt = -res.fun[best_lane]
+        x_opt, ei_opt = _refine(neg_avg_ei, cand, ei_masked, config)
     else:
         x_opt = cand[best_cand]
         ei_opt = best_cand_ei

@@ -28,6 +28,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures of the entry points: every pointer and the stream are
 # c_void_p (a plain int would cut a 64-bit pointer), sizes are c_int.
+# spm_shifted_chol takes a null dshift for the unshifted kernels (B4).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "shifted_chol": {"spm_shifted_chol": [_P] * 8 + [_I, _I, _I, _P]},

@@ -1,17 +1,23 @@
-// Shifted blocked Cholesky with the right-hand side solved during the
-// factorization, for a batch of K lanes.  Kernels B1 and B2 of the port.
+// Blocked Cholesky, optionally of a diagonally shifted matrix, with the
+// right-hand side solved during the factorization, for a batch of K lanes.
+// Kernels B1, B2, B4a and B4b of the port.
 //
 // Replaces (TPU, Pallas): spearmint_tpu/ops/pallas_gp.py
 //   shifted_logdet_q_pallas        (B1, :930 -> _call(shift=True), body
 //                                   _make_kernel :279)
 //   shifted_factor_logdet_q_pallas (B2, :777 -> _call(shift=True, emit=True))
+//   logdet_q_pallas                (B4a, :896 -> _call(shift=False))
+//   factor_logdet_q_pallas         (B4b, :743 -> _call(shift=False, emit=True))
+// As in the Pallas source, the four are one kernel body: the shift is a
+// template flag of the diagonal launch, on when dshift is not null.
 //
-// Computes, per lane, L = chol(M + diag(dshift)) right-looking over panels
-// of PANEL columns, w = L^{-1} r alongside, and ld = sum log diag L,
-// q = |w|^2.  The pivot is d = d2 * rsqrt(d2), so a non-positive pivot
-// gives NaN (never +-inf) in that lane's ld and q only.  Rows with M = 0
-// and shift 1 (padded observations) factor to exact identity rows and add
-// exactly 0 to ld and q.  ws leaves as L (lower; the diagonal tiles and,
+// Computes, per lane, L = chol(M + diag(dshift)), or L = chol(M) with no
+// shift, right-looking over panels of PANEL columns, w = L^{-1} r
+// alongside, and ld = sum log diag L, q = |w|^2.  The pivot is
+// d = d2 * rsqrt(d2), so a non-positive pivot gives NaN (never +-inf) in
+// that lane's ld and q only.  Padded observations (rows with M = 0 and
+// shift 1, or identity rows of an unshifted M, with r = 0) factor to exact
+// identity rows and add exactly 0 to ld and q.  ws leaves as L (lower; the diagonal tiles and,
 // with emit, the strip above each panel are zeroed, so L is a complete
 // lower-triangular matrix), w as L^{-1} r.
 //
@@ -24,7 +30,7 @@
 //
 // Design: the host loop below runs three launches per panel, each over a
 // grid that includes the lane:
-//   1. diag_kernel      factor the shifted diagonal tile in shared memory,
+//   1. diag_kernel      factor the (shifted) diagonal tile in shared memory,
 //                       invert it, w_k <- L_kk^{-1} w_k, accumulate ld, q;
 //   2. panel_kernel     L_ik = A_ik L_kk^{-T} and w_i -= L_ik w_k for every
 //                       row tile below, one block per 64-row tile;
@@ -40,6 +46,7 @@
 
 namespace {
 
+template <bool kShift>
 __global__ void __launch_bounds__(NTHREADS)
 diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
             float* __restrict__ w, float* __restrict__ linv,
@@ -53,7 +60,7 @@ diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
     const int tid = threadIdx.x;
     const int nb = min(PANEL, n - k0);
     float* A = ws + (size_t)lane * n * n;
-    const float* ds = dshift + (size_t)lane * n;
+    const float* ds = kShift ? dshift + (size_t)lane * n : nullptr;
     float* wl = w + (size_t)lane * n;
 
     for (int e = tid; e < PANEL * PANEL; e += NTHREADS) {
@@ -61,7 +68,7 @@ diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
         float v = (r == c) ? 1.f : 0.f;
         if (r < nb && c <= r) {
             v = A[(size_t)(k0 + r) * n + k0 + c];
-            if (r == c) v += ds[k0 + r];
+            if (kShift && r == c) v += ds[k0 + r];
         }
         a[r][c] = v;
     }
@@ -220,9 +227,10 @@ trailing_kernel(float* __restrict__ ws, int n, int k0)
 
 }  // namespace
 
-// K lanes of n x n.  m0, dshift, r: inputs (read only).  ws [K,n,n] and
-// w [K,n]: outputs L and L^{-1} r.  linv [K,PANEL,PANEL]: scratch.  ld, q
-// [K]: outputs.  emit != 0 also zeroes the strip above each panel.
+// K lanes of n x n.  m0, dshift, r: inputs (read only); dshift may be null
+// (no shift: B4a, B4b).  ws [K,n,n] and w [K,n]: outputs L and L^{-1} r.
+// linv [K,PANEL,PANEL]: scratch.  ld, q [K]: outputs.  emit != 0 also
+// zeroes the strip above each panel.
 extern "C" int spm_shifted_chol(const void* m0, const void* dshift,
                                 const void* r, void* ws, void* w, void* linv,
                                 void* ld, void* q, int K, int n, int emit,
@@ -241,9 +249,13 @@ extern "C" int spm_shifted_chol(const void* m0, const void* dshift,
     float* V = static_cast<float*>(w);
     float* X = static_cast<float*>(linv);
     for (int k0 = 0; k0 < n; k0 += PANEL) {
-        diag_kernel<<<K, NTHREADS, 0, s>>>(
-            W, static_cast<const float*>(dshift), V, X,
-            static_cast<float*>(ld), static_cast<float*>(q), n, k0);
+        const float* D = static_cast<const float*>(dshift);
+        float* LD = static_cast<float*>(ld);
+        float* Q = static_cast<float*>(q);
+        if (D)
+            diag_kernel<true><<<K, NTHREADS, 0, s>>>(W, D, V, X, LD, Q, n, k0);
+        else
+            diag_kernel<false><<<K, NTHREADS, 0, s>>>(W, D, V, X, LD, Q, n, k0);
         const int rem = n - k0 - PANEL;
         if (rem > 0) {
             const int m = (rem + PANEL - 1) / PANEL;

@@ -1,24 +1,31 @@
 """The Cholesky-family kernels of the GP hot path, and their plain versions.
 
-JAX counterpart: ``spearmint_tpu/ops/pallas_gp.py``.  Three kernels:
+JAX counterpart: ``spearmint_tpu/ops/pallas_gp.py``.  Five kernels, built
+from two sources:
 
-  * B1 ``shifted_logdet_q``        (``shifted_logdet_q_pallas``)
-  * B2 ``shifted_factor_logdet_q`` (``shifted_factor_logdet_q_pallas``)
-  * B3 ``tri_inverse``             (``tri_inverse_pallas``)
+  * B1  ``shifted_logdet_q``        (``shifted_logdet_q_pallas``)
+  * B2  ``shifted_factor_logdet_q`` (``shifted_factor_logdet_q_pallas``)
+  * B4a ``logdet_q``                (``logdet_q_pallas``)
+  * B4b ``factor_logdet_q``         (``factor_logdet_q_pallas``)
+  * B3  ``tri_inverse``             (``tri_inverse_pallas``)
 
-Each wrapper launches its CUDA kernel (``csrc/shifted_chol.cu``,
-``csrc/tri_inverse.cu``) for a CUDA tensor, and runs the plain PyTorch
-version beside it (``*_ref``) only for a tensor on the CPU.  The plain
-versions follow the kernels' own blocked schedule — PANEL-wide panels, an
-unblocked column sweep on the diagonal tile with the pivot taken as
-d2·rsqrt(d2), a forward-substitution tile inverse, the ragged last panel —
-so the CPU tests exercise the tiling, the ragged edge and the padded rows
-that the card runs.
+B1, B2, B4a and B4b are one CUDA kernel (``csrc/shifted_chol.cu``), with
+or without the diagonal shift and the emitted factor, as they are one
+Pallas body; B3 is ``csrc/tri_inverse.cu``.  Each wrapper launches its
+CUDA kernel for a CUDA tensor, and runs the plain PyTorch version beside
+it (``*_ref``) only for a tensor on the CPU.  The plain versions follow
+the kernels' own blocked schedule — PANEL-wide panels, an unblocked column
+sweep on the diagonal tile with the pivot taken as d2·rsqrt(d2), a
+forward-substitution tile inverse, the ragged last panel — so the CPU
+tests exercise the tiling, the ragged edge and the padded rows that the
+card runs.
 
-Inputs and outputs are float32 and contiguous; B1/B2 take
-M [K, N, N], dshift [K, N], r [K, N] and factor M + diag(dshift).  A
-non-PSD lane gives NaN in that lane only; rows with M = 0 and shift 1 add
-exactly 0.  ``launches`` counts kernel launches per wrapper (CUDA only).
+Inputs and outputs are float32 and contiguous.  B1/B2 take M [K, N, N],
+dshift [K, N], r [K, N] and factor M + diag(dshift); B4a/B4b take an
+assembled K [K, N, N] and r [K, N].  A non-PSD lane gives NaN in that lane
+only; padded rows (M = 0 with shift 1, or identity rows of K, with r = 0)
+add exactly 0.  ``launches`` counts kernel launches per wrapper (CUDA
+only).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 PANEL = 64
 
 launches = {"shifted_logdet_q": 0, "shifted_factor_logdet_q": 0,
-            "tri_inverse": 0}
+            "logdet_q": 0, "factor_logdet_q": 0, "tri_inverse": 0}
 
 
 def reset_launches() -> None:
@@ -64,9 +71,9 @@ def _invert_tile(l: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def shifted_factor_logdet_q_ref(m0, dshift, resid):
-    """Plain version of B2: (ld, q, L, w) for L = chol(M + diag(dshift))."""
-    _check_factor_args(m0, dshift, resid)
+def _factor_ref(m0, dshift, resid):
+    """The blocked schedule of B1/B2 (dshift [K, N]) and B4a/B4b (dshift
+    None: the diagonal tiles are factored as they are)."""
     k_batch, n, _ = m0.shape
     a = m0.clone()
     w = resid.clone()
@@ -74,7 +81,9 @@ def shifted_factor_logdet_q_ref(m0, dshift, resid):
     q = torch.zeros_like(ld)
     for k0 in range(0, n, PANEL):
         k1 = min(k0 + PANEL, n)
-        tile = a[:, k0:k1, k0:k1] + torch.diag_embed(dshift[:, k0:k1])
+        tile = a[:, k0:k1, k0:k1]
+        if dshift is not None:
+            tile = tile + torch.diag_embed(dshift[:, k0:k1])
         l = _factor_tile(tile)
         x = _invert_tile(l)
         wk = (x @ w[:, k0:k1, None])[..., 0]
@@ -91,9 +100,27 @@ def shifted_factor_logdet_q_ref(m0, dshift, resid):
     return ld, q, a, w
 
 
+def shifted_factor_logdet_q_ref(m0, dshift, resid):
+    """Plain version of B2: (ld, q, L, w) for L = chol(M + diag(dshift))."""
+    _check_factor_args(m0, dshift, resid)
+    return _factor_ref(m0, dshift, resid)
+
+
 def shifted_logdet_q_ref(m0, dshift, resid):
     """Plain version of B1: (ld, q) only."""
     ld, q, _, _ = shifted_factor_logdet_q_ref(m0, dshift, resid)
+    return ld, q
+
+
+def factor_logdet_q_ref(kmat, resid):
+    """Plain version of B4b: (ld, q, L, w) for L = chol(K)."""
+    _check_factor_args(kmat, None, resid)
+    return _factor_ref(kmat, None, resid)
+
+
+def logdet_q_ref(kmat, resid):
+    """Plain version of B4a: (ld, q) only."""
+    ld, q, _, _ = factor_logdet_q_ref(kmat, resid)
     return ld, q
 
 
@@ -126,6 +153,8 @@ def _check_factor_args(m0, dshift, resid):
     _check_square(m0, "m0")
     k_batch, n, _ = m0.shape
     for name, t in (("dshift", dshift), ("resid", resid)):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous float32")
         if tuple(t.shape) != (k_batch, n):
@@ -158,6 +187,7 @@ def _raise_on(err: int, what: str) -> None:
 
 # ---------------------------------------------------------------- wrappers
 def _shifted_chol(m0, dshift, resid, emit):
+    """One ``spm_shifted_chol`` call; dshift None runs it unshifted (B4)."""
     from spearmint_tpu_torch.ops import build
 
     k_batch, n, _ = m0.shape
@@ -169,7 +199,7 @@ def _shifted_chol(m0, dshift, resid, emit):
     q = torch.empty_like(ld)
     with torch.cuda.device(m0.device):
         err = build.load("shifted_chol").spm_shifted_chol(
-            _ptr(m0), _ptr(dshift), _ptr(resid), _ptr(ws), _ptr(w),
+            _ptr(m0), None if dshift is None else _ptr(dshift), _ptr(resid), _ptr(ws), _ptr(w),
             _ptr(linv), _ptr(ld), _ptr(q), k_batch, n, int(emit),
             _stream(m0))
     _raise_on(err, "spm_shifted_chol")
@@ -193,6 +223,27 @@ def shifted_factor_logdet_q(m0, dshift, resid):
         return shifted_factor_logdet_q_ref(m0, dshift, resid)
     out = _shifted_chol(m0, dshift, resid, emit=True)
     launches["shifted_factor_logdet_q"] += 1
+    return out
+
+
+def logdet_q(kmat, resid):
+    """B4a: (Σ log diag L, ‖L⁻¹r‖²) per lane, L = chol(K) of an assembled K."""
+    _check_factor_args(kmat, None, resid)
+    if not _on_cuda(kmat):
+        return logdet_q_ref(kmat, resid)
+    ld, q, _, _ = _shifted_chol(kmat, None, resid, emit=False)
+    launches["logdet_q"] += 1
+    return ld, q
+
+
+def factor_logdet_q(kmat, resid):
+    """B4b: (ld, q, L, w = L⁻¹r) of an assembled K; L lower-triangular with
+    exact zeros above."""
+    _check_factor_args(kmat, None, resid)
+    if not _on_cuda(kmat):
+        return factor_logdet_q_ref(kmat, resid)
+    out = _shifted_chol(kmat, None, resid, emit=True)
+    launches["factor_logdet_q"] += 1
     return out
 
 

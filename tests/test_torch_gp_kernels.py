@@ -1,7 +1,11 @@
 """Plain versions of the Cholesky-family kernels vs the JAX Pallas kernels.
 
 ``spearmint_tpu_torch.ops.gp_kernels`` holds B1 (shifted_logdet_q), B2
-(shifted_factor_logdet_q) and B3 (tri_inverse).  On a CPU tensor each
+(shifted_factor_logdet_q), B4a (logdet_q), B4b (factor_logdet_q) and B3
+(tri_inverse).  B4a/B4b factor an assembled K; the tests hand them
+K = M + diag(d) assembled in float32, the matrix B1/B2 factor through the
+shift, and parametrise the shared tests over the two forms.  On a CPU
+tensor each
 wrapper runs its plain PyTorch version, which follows the CUDA kernel's
 blocked schedule (64-wide panels, ragged last panel).  Here those run
 against the Pallas kernels in interpret mode at ``block=128, sub=32`` —
@@ -16,6 +20,8 @@ import scipy.linalg as spla
 import torch
 
 from spearmint_tpu.ops.pallas_gp import (
+    factor_logdet_q_pallas,
+    logdet_q_pallas,
     shifted_factor_logdet_q_pallas,
     shifted_logdet_q_pallas,
     tri_inverse_pallas,
@@ -57,17 +63,44 @@ def _t(*arrays):
     return tuple(torch.tensor(a) for a in arrays)
 
 
+def _assemble(m, d):
+    """K = M + diag(d) in float32 (padded rows: identity rows)."""
+    return (m + np.stack([np.diag(x) for x in d])).astype(np.float32)
+
+
+FORMS = ["shifted", "unshifted"]
+
+
+def _factor(form, m, d, r):
+    """(ld, q, L, w) of M + diag(d): B2 through the shift, or B4b on the
+    assembled K."""
+    if form == "shifted":
+        return gk.shifted_factor_logdet_q(*_t(m, d, r))
+    return gk.factor_logdet_q(*_t(_assemble(m, d), r))
+
+
+def _logdet(form, m, d, r):
+    """(ld, q) of M + diag(d): B1, or B4a on the assembled K."""
+    if form == "shifted":
+        return gk.shifted_logdet_q(*_t(m, d, r))
+    return gk.logdet_q(*_t(_assemble(m, d), r))
+
+
 @pytest.fixture(scope="module", params=[(256, 0), (384, 37)],
                 ids=["n256", "n384_pad37"])
 def pallas_case(request):
-    """One Pallas B1, B2 and B3 run per shape, shared by the tests."""
+    """One Pallas B1, B2, B3, B4a and B4b run per shape, shared by the
+    tests."""
     n, npad = request.param
     m, d, r = _case(3, n, npad, seed=n)
     mj, dj, rj = map(jnp.asarray, (m, d, r))
+    kj = jnp.asarray(_assemble(m, d))
     ld1, q1 = shifted_logdet_q_pallas(mj, dj, rj, **PALLAS)
     ld2, q2, l2, w2 = shifted_factor_logdet_q_pallas(mj, dj, rj, **PALLAS)
     x3 = tri_inverse_pallas(l2, **PALLAS)
-    out = dict(b1=(ld1, q1), b2=(ld2, q2, l2, w2), b3=x3)
+    ld4, q4 = logdet_q_pallas(kj, rj, **PALLAS)
+    out = dict(b1=(ld1, q1), b2=(ld2, q2, l2, w2), b3=x3, b4a=(ld4, q4),
+               b4b=factor_logdet_q_pallas(kj, rj, **PALLAS))
     return (m, d, r), {k: tuple(np.asarray(a) for a in v)
                        if isinstance(v, tuple) else np.asarray(v)
                        for k, v in out.items()}
@@ -100,6 +133,36 @@ def test_b2_plain_matches_pallas(pallas_case):
     np.testing.assert_allclose(w.numpy(), w0, rtol=2e-3, atol=2e-3)
 
 
+def test_b4a_plain_matches_pallas(pallas_case):
+    """B4a on the assembled K against Pallas' unshifted kernel and float64,
+    at B1's tolerances."""
+    (m, d, r), pal = pallas_case
+    ld, q = gk.logdet_q(*_t(_assemble(m, d), r))
+    np.testing.assert_allclose(ld.numpy(), pal["b4a"][0], rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(q.numpy(), pal["b4a"][1], rtol=2e-3, atol=2e-3)
+    ld0, q0, _, _ = _f64(m, d, r)
+    np.testing.assert_allclose(ld.numpy(), ld0, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(q.numpy(), q0, rtol=2e-3, atol=2e-3)
+
+
+def test_b4b_plain_matches_pallas(pallas_case):
+    """B4b: B4a's scalars, plus L (exact zeros above the diagonal, where
+    Pallas leaves its input) and w, at B2's tolerances."""
+    (m, d, r), pal = pallas_case
+    ld, q, lmat, w = gk.factor_logdet_q(*_t(_assemble(m, d), r))
+    p_ld, p_q, p_l, p_w = pal["b4b"]
+    np.testing.assert_allclose(ld.numpy(), p_ld, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(q.numpy(), p_q, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(lmat.numpy(), np.tril(p_l), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(w.numpy(), p_w, rtol=2e-3, atol=2e-3)
+    assert float(torch.triu(lmat, 1).abs().max()) == 0.0
+    _, _, chol0, w0 = _f64(m, d, r)
+    np.testing.assert_allclose(lmat.numpy(), chol0, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(w.numpy(), w0, rtol=2e-3, atol=2e-3)
+
+
 def test_b3_plain_matches_pallas(pallas_case):
     """Both invert the Pallas factor, whose tiles above the block diagonal
     still hold the input: B3 must read only the lower triangle."""
@@ -115,41 +178,48 @@ def test_b3_plain_matches_pallas(pallas_case):
     np.testing.assert_allclose(x, x0, rtol=3e-4, atol=3e-4)
 
 
-def test_nan_lane_is_isolated():
+@pytest.mark.parametrize("form", FORMS)
+def test_nan_lane_is_isolated(form):
     """A non-PSD lane gives NaN (d2·rsqrt(d2) of a negative pivot) in its
     own ld and q only, in the plain versions as in Pallas; the other
     lanes equal a run without the bad lane."""
     m, d, r = _case(3, 200, seed=4)
     m[0] = -m[0]
-    ld, q, lmat, w = gk.shifted_factor_logdet_q(*_t(m, d, r))
-    ld1, q1 = gk.shifted_logdet_q(*_t(m, d, r))
+    ld, q, lmat, w = _factor(form, m, d, r)
+    ld1, q1 = _logdet(form, m, d, r)
     for a in (ld, q, ld1, q1):
         assert bool(torch.isnan(a[0])) and bool(torch.isfinite(a[1:]).all())
     assert bool(torch.isfinite(lmat[1:]).all())
     assert bool(torch.isfinite(gk.tri_inverse(lmat)[1:]).all())
-    good = gk.shifted_factor_logdet_q(*_t(m[1:], d[1:], r[1:]))
+    good = _factor(form, m[1:], d[1:], r[1:])
     for a, b in zip((ld, q, lmat, w), good):
         np.testing.assert_array_equal(a[1:].numpy(), b.numpy())
     mp, dp, rp = _case(2, 256, seed=4)
     mp[0] = -mp[0]
-    p_ld, p_q = shifted_logdet_q_pallas(*map(jnp.asarray, (mp, dp, rp)),
-                                        **PALLAS)
+    if form == "shifted":
+        p_ld, p_q = shifted_logdet_q_pallas(*map(jnp.asarray, (mp, dp, rp)),
+                                            **PALLAS)
+    else:
+        p_ld, p_q = logdet_q_pallas(jnp.asarray(_assemble(mp, dp)),
+                                    jnp.asarray(rp), **PALLAS)
     assert np.isnan(np.asarray(p_ld)[0]) and np.isnan(np.asarray(p_q)[0])
     assert np.isfinite(np.asarray(p_ld)[1])
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n_real,n", [(100, 160), (64, 136), (37, 40)])
-def test_padded_rows_are_inert(n_real, n):
-    """Rows with M = 0, shift 1 and r = 0 factor to identity rows: ld, q
-    of the unpadded problem (1e-6 relative: the sums run over more terms
-    in another order), L and w exactly zero off the real block and L
-    exactly the identity on the padded block."""
+def test_padded_rows_are_inert(n_real, n, form):
+    """Rows with M = 0, shift 1 and r = 0 (identity rows of the assembled
+    K) factor to identity rows: ld, q of the unpadded problem (1e-6
+    relative: the sums run over more terms in another order), L and w
+    exactly zero off the real block and L exactly the identity on the
+    padded block."""
     m, d, r = _case(2, n, n - n_real, seed=n)
-    ld, q, lmat, w = gk.shifted_factor_logdet_q(*_t(m, d, r))
+    ld, q, lmat, w = _factor(form, m, d, r)
     s = slice(0, n_real)
-    ld0, q0, l0, w0 = gk.shifted_factor_logdet_q(
-        *_t(np.ascontiguousarray(m[:, s, s]), np.ascontiguousarray(d[:, s]),
-            np.ascontiguousarray(r[:, s])))
+    ld0, q0, l0, w0 = _factor(form, np.ascontiguousarray(m[:, s, s]),
+                              np.ascontiguousarray(d[:, s]),
+                              np.ascontiguousarray(r[:, s]))
     np.testing.assert_allclose(ld.numpy(), ld0.numpy(), rtol=1e-6)
     np.testing.assert_allclose(q.numpy(), q0.numpy(), rtol=1e-6)
     np.testing.assert_allclose(lmat[:, s, s].numpy(), l0.numpy(), rtol=1e-6,
@@ -166,12 +236,13 @@ def test_padded_rows_are_inert(n_real, n):
                                   lmat[:, n_real:, n_real:].numpy())
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n", [16, 20, 28, 56, 64, 65, 100, 136, 200])
-def test_every_small_pad_factors(n):
+def test_every_small_pad_factors(n, form):
     """Every ragged width the port produces goes through the same blocked
     schedule: against float64 at 1e-5 (ld) and 1e-4 (q, L, X)."""
     m, d, r = _case(2, n, seed=n)
-    ld, q, lmat, w = gk.shifted_factor_logdet_q(*_t(m, d, r))
+    ld, q, lmat, w = _factor(form, m, d, r)
     x = gk.tri_inverse(lmat)
     ld0, q0, l0, _ = _f64(m, d, r)
     np.testing.assert_allclose(ld.numpy(), ld0, rtol=1e-5)
@@ -226,6 +297,12 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     for a, b in zip(out, gk.shifted_factor_logdet_q_ref(*args)):
         assert torch.equal(a, b)
     assert torch.equal(gk.tri_inverse(out[2]), gk.tri_inverse_ref(out[2]))
+    k = torch.tensor(_assemble(m, d))
+    for a, b in zip(gk.logdet_q(k, args[2]), gk.logdet_q_ref(k, args[2])):
+        assert torch.equal(a, b)
+    for a, b in zip(gk.factor_logdet_q(k, args[2]),
+                    gk.factor_logdet_q_ref(k, args[2])):
+        assert torch.equal(a, b)
     assert gk.launches == before
     # the inputs are not modified
     np.testing.assert_array_equal(args[0].numpy(), m)
@@ -243,3 +320,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         gk.tri_inverse(m[:, :, :16].contiguous())
     with pytest.raises(ValueError):
         gk.tri_inverse(m.to("meta"))
+    with pytest.raises(ValueError):
+        gk.logdet_q(m.double(), r)
+    with pytest.raises(ValueError):
+        gk.factor_logdet_q(m, r[:, :16].contiguous())
+    with pytest.raises(ValueError):
+        gk.logdet_q(m.transpose(1, 2), r)

@@ -10,10 +10,12 @@ port's machine need not have; this file imports neither JAX nor
 ``cuda`` fixture.
 
 Each kernel (B1 ``shifted_logdet_q``, B2 ``shifted_factor_logdet_q``, B3
-``tri_inverse``) is held against its plain PyTorch version on the same
-card and against a float64 ``torch.linalg`` oracle, at a ragged width, at
-the production pad 1024 (the pad of ``tests/test_tpu_smoke.py``) and at
-the pending flagship's augmented pad 5248.  Inputs are M = F Fᵀ/8 (rank 8)
+``tri_inverse``, and B4a ``logdet_q`` / B4b ``factor_logdet_q`` on
+K = M + diag(d) assembled in float32) is held against its plain PyTorch
+version on the same card and against a float64 ``torch.linalg`` oracle,
+at a ragged width, at the production pad 1024 (the pad of
+``tests/test_tpu_smoke.py``) and at the pending flagship's augmented pad
+5248.  Inputs are M = F Fᵀ/8 (rank 8)
 plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors stay near
 n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4 absolute (entries
 O(1)), w 5e-4 of its largest entry, X 5e-4 absolute (entries up to ~3).
@@ -88,6 +90,24 @@ def test_kernels_match_plain_version_and_f64(cuda, k_batch, n):
     assert float(torch.triu(lmat, 1).abs().max()) == 0.0
     assert _abs(x, p_x) < TOL["X"] and _abs(x, o_x) < TOL["X"]
     assert float(torch.triu(x, 1).abs().max()) == 0.0
+    del x, p_x, o_x
+
+    # B4a/B4b on the same matrix assembled in float32, against their plain
+    # versions and the float64 factor of that float32 K
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    ld4, q4 = gk.logdet_q(kmat, r)
+    ld5, q5, l5, w5 = gk.factor_logdet_q(kmat, r)
+    torch.cuda.synchronize()
+    p_ld, p_q, p_l, p_w = gk.factor_logdet_q_ref(kmat, r)
+    o_ld, o_q, o_l, o_w = _oracle(kmat, torch.zeros_like(d), r)
+    for ld, q in ((ld4, q4), (ld5, q5)):
+        for want_ld, want_q in ((p_ld, p_q), (o_ld, o_q)):
+            assert _rel(ld, want_ld) < TOL["ld"]
+            assert _rel(q, want_q) < TOL["q"]
+    for want_l, want_w in ((p_l, p_w), (o_l, o_w)):
+        assert _abs(l5, want_l) < TOL["L"]
+        assert _abs(w5, want_w) / float(want_w.abs().max()) < TOL["w"]
+    assert float(torch.triu(l5, 1).abs().max()) == 0.0
 
 
 def test_non_psd_lane_gives_nan_in_its_own_lane_only(cuda):
@@ -105,6 +125,13 @@ def test_non_psd_lane_gives_nan_in_its_own_lane_only(cuda):
                                          for t in (m, d, r)))
     assert _rel(ld2[[0, 2]], good[0]) < TOL["ld"]
     assert _abs(lmat[[0, 2]], good[2]) < TOL["L"]
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    ld4, q4 = gk.logdet_q(kmat, r)
+    ld5, q5, l5, _ = gk.factor_logdet_q(kmat, r)
+    for a in (ld4, q4, ld5, q5):
+        assert bool(torch.isnan(a[1]))
+        assert bool(torch.isfinite(a[[0, 2]]).all())
+    assert bool(torch.isfinite(l5[[0, 2]]).all())
 
 
 def test_padded_rows_are_inert_on_the_card(cuda):
@@ -120,11 +147,17 @@ def test_padded_rows_are_inert_on_the_card(cuda):
     ld0, q0 = gk.shifted_logdet_q(m[:, :100, :100].contiguous(),
                                   d[:, :100].contiguous(),
                                   r[:, :100].contiguous())
-    assert _rel(ld, ld0) < TOL["ld"] and _rel(q, q0) < TOL["q"]
-    assert torch.equal(lmat[:, 100:, 100:],
-                       torch.eye(100, device="cuda").expand(2, -1, -1))
-    assert float(lmat[:, 100:, :100].abs().max()) == 0.0
-    assert float(w[:, 100:].abs().max()) == 0.0
+    kmat = (m + torch.diag_embed(d)).contiguous()   # identity padded rows
+    ld4, q4, l4, w4 = gk.factor_logdet_q(kmat, r)
+    for a, b in ((ld, ld0), (ld4, ld0)):
+        assert _rel(a, b) < TOL["ld"]
+    for a, b in ((q, q0), (q4, q0)):
+        assert _rel(a, b) < TOL["q"]
+    for lm, wv in ((lmat, w), (l4, w4)):
+        assert torch.equal(lm[:, 100:, 100:],
+                           torch.eye(100, device="cuda").expand(2, -1, -1))
+        assert float(lm[:, 100:, :100].abs().max()) == 0.0
+        assert float(wv[:, 100:].abs().max()) == 0.0
 
 
 def test_wrappers_count_cuda_launches_and_reject_bad_input(cuda):
@@ -134,8 +167,14 @@ def test_wrappers_count_cuda_launches_and_reject_bad_input(cuda):
     gk.shifted_logdet_q(m, d, r)
     _, _, lmat, _ = gk.shifted_factor_logdet_q(m, d, r)
     gk.tri_inverse(lmat)
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    gk.logdet_q(kmat, r)
+    gk.factor_logdet_q(kmat, r)
     assert gk.launches == {"shifted_logdet_q": 1,
-                           "shifted_factor_logdet_q": 1, "tri_inverse": 1}
+                           "shifted_factor_logdet_q": 1, "logdet_q": 1,
+                           "factor_logdet_q": 1, "tri_inverse": 1}
+    with pytest.raises(ValueError):
+        gk.logdet_q(kmat, r.cpu())
     with pytest.raises(ValueError):
         gk.shifted_logdet_q(m.double(), d, r)
     with pytest.raises(ValueError):
@@ -214,4 +253,44 @@ def test_suggest_step_on_the_card_goes_through_every_kernel(cuda):
                                      lbfgs_iters=10), device="cuda")
     assert int(res.n_ok) == 8
     assert bool(torch.isfinite(res.ei).all())
-    assert min(gk.launches.values()) > 0, gk.launches
+    flagship = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
+    assert min(gk.launches[k] for k in flagship) > 0, gk.launches
+    assert gk.launches["logdet_q"] == gk.launches["factor_logdet_q"] == 0
+
+
+def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
+    """The constrained suggestion at pad 224 launches B1, B2, B3 and B4a
+    (the constraint ls move), with a finite acquisition.  The constraint
+    chains start at ls = 0.2: at n = 200 the jitter is 1e-6, and from
+    ls ≈ 0.5 (cond ≈ 1e8) the blocked float32 factorization gives NaN,
+    in the Pallas kernel as here (ROADMAP C2)."""
+    from spearmint_tpu_torch.engine.constrained import (
+        init_constraint_states, suggest_step_constrained,
+    )
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states,
+    )
+
+    gk = cuda
+    n, pad = 200, 224
+    rng = np.random.RandomState(2)
+    xp = np.zeros((pad, 2), np.float32); xp[:n] = rng.rand(n, 2)
+    obs = np.arange(pad) < n
+    valid = obs & (xp[:, 0] < 0.7)
+    yp = np.where(valid, np.sin(3 * xp[:, 0]), 0.0).astype(np.float32)
+    h = init_chain_states(torch.tensor(yp, device="cuda"),
+                          torch.tensor(valid, device="cuda"), 2, 4)
+    c = init_constraint_states(2, pad, 4, device="cuda")
+    c = c._replace(ls=torch.full_like(c.ls, 0.2))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gk.reset_launches()
+    res = suggest_step_constrained(
+        gen, h, c, xp, yp, valid, obs, rng.rand(256, 2).astype(np.float32),
+        np.ones(256, bool), SuggestConfig(mcmc_iters=2, grid_subset=4,
+                                          lbfgs_iters=10), device="cuda")
+    assert int(res.n_ok) > 0
+    assert bool(torch.isfinite(res.acq).all())
+    path = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse",
+            "logdet_q")
+    assert min(gk.launches[k] for k in path) > 0, gk.launches

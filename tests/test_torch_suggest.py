@@ -153,15 +153,21 @@ def test_no_quiet_fallback_to_the_cpu(tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter imports the port, runs a tiny CPU suggestion,
-    and has loaded no module of jax or of spearmint_tpu."""
+    """A fresh interpreter imports the port (the constrained engine, ESS
+    and the constrained chooser included), runs a tiny CPU suggestion and
+    a tiny CPU constrained suggestion, and has loaded no module of jax or
+    of spearmint_tpu."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import spearmint_tpu_torch",
         "from spearmint_tpu_torch.engine.suggest import (",
         "    SuggestConfig, init_chain_states, suggest_step)",
+        "from spearmint_tpu_torch.engine.constrained import (",
+        "    init_constraint_states, suggest_step_constrained)",
         "from spearmint_tpu_torch.choosers import get_chooser",
+        "import spearmint_tpu_torch.choosers.GPConstrainedEIChooser",
         "import spearmint_tpu_torch.convert",
+        "import spearmint_tpu_torch.mcmc.ess",
         "rng = np.random.RandomState(0)",
         "x = np.zeros((16, 2), np.float32); x[:6] = rng.rand(6, 2)",
         "y = np.zeros(16, np.float32); y[:6] = rng.randn(6)",
@@ -173,6 +179,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                 np.ones(64, bool), SuggestConfig(mcmc_iters=1,",
         "                 lbfgs_iters=3, grid_subset=2), device='cpu')",
         "assert int(r.n_ok) > 0",
+        "vm = m & (x[:, 0] < 0.7)",
+        "c = init_constraint_states(2, 16, 2, device='cpu')",
+        "r = suggest_step_constrained(g, h, c, x, np.where(vm, y, 0), vm,",
+        "                             m, rng.rand(64, 2), np.ones(64, bool),",
+        "                             SuggestConfig(mcmc_iters=1,",
+        "                             lbfgs_iters=3, grid_subset=2),",
+        "                             device='cpu')",
+        "assert int(r.n_ok) > 0 and bool(torch.isfinite(r.acq).all())",
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')",
         "       or k == 'spearmint_tpu' or k.startswith('spearmint_tpu.')]",
         "print('LOADED', bad)",
