@@ -22,7 +22,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               events) beside the plain version, the nearest PyTorch
               library calls and the bound.  Then B1-B3 on the flagship's
               own M-form and B4a on the constraint covariance's own form
-              (pad 5120, ls = 1, no noise term), against float64;
+              (pad 5120, ls = 1, no noise term), against float64.  B5
+              (cyclic reduction) at [10, 64, 128, 128] and [3, 8, 16, 16],
+              each with a non-PD lane, against its plain version and
+              float64 (ld 1e-5, q 1e-4 relative); then on the band
+              flagship's own blocks (the reduction of the flagship's M,
+              40 blocks of 128 padded to 64), timed beside its plain
+              version, the bound, the dense library Cholesky + solve of
+              the same [10, 5120, 5120] matrix, the band scan
+              (``band_logdet_q``) and the reduction itself;
   4. check    EI and the log-marginal at fixed hyperparameters on a small
               input (n=1000) against float64 dense math;
   5. flagship ``suggest_step`` at n=5000 (pad 5120), d=2, 10 chains, 2000
@@ -41,13 +49,27 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               Cholesky of the same float32 matrix finds indefinite; the
               per-stage seconds, and ``torch.profiler`` over one
               suggestion and over one constraint sweep;
-  8. chooser  the port's GPEIOptChooser on Branin over a 300-point grid,
-              16 evaluations, seed 2, best < 3.0;
-  9. constrained_chooser  the port's GPConstrainedEIChooser on a 40-point
+  8. band     the flagship shape with band mode on
+              (``SuggestConfig(band_joint=True)``), one warm-up and three
+              timed reps: n_ok == 10 on every rep, finite EI, B5 and B1
+              launched; the per-stage seconds, a ``torch.profiler`` split
+              of one rep into the reduction, B5, the ls move's B1 and the
+              assemblies, and peak memory; the padded tail of Qᵀ[y, mask]
+              exactly 0, and the band lp at the chains' initial state
+              within 2e-4 (relative) of float64 dense lp and of B1's lp;
+  9. chooser  the port's GPEIOptChooser on Branin over a 300-point grid,
+              16 evaluations, seed BRANIN_SEED, best < 3.0; its pads (≤ 28)
+              take the small-pad route (the library Cholesky), so no
+              kernel launches;
+ 10. constrained_chooser  the port's GPConstrainedEIChooser on a 40-point
               grid with 12 completions (violations where x0 > 0.5), three
               ``next`` calls by three chooser objects resuming one state
-              file: each returns an index or an (acq, x) tuple, B4a is
-              launched (pad 16), and n_ok > 0.
+              file: each returns an index or an (acq, x) tuple and n_ok >
+              0; at pad 16 no kernel launches (the small-pad route);
+ 11. band_chooser  GPEIOptChooser(band_joint_min=2048, chains=10,
+              mcmc_iters=10, burnin=5) at 2100 completions (pad 2560), one
+              ``next``: an index or an (ei, x) tuple, band mode on, B5
+              launched and n_ok > 0.
 
 Every line before the last three is one JSON record.  Then come the
 ``{"kernels": [...]}`` line (each kernel's launches on every path), the
@@ -56,8 +78,15 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
     python3 chip_smoke.py --branin-seeds 0,1,2
 
-runs only the build and phase 8, once per seed, and prints one record
-each (no result line): the chooser's success rate on the card.
+runs only the build and phase 9, once per seed, and prints one record
+each (no result line): the chooser's success rate on the card.  Two more
+probes run the build and then only themselves, printing records and no
+result line:
+
+    python3 chip_smoke.py --band-precision   # float32 against float64
+                                             # band reduction, one lane
+    python3 chip_smoke.py --small-pads       # chooser ``next`` at pads
+                                             # 256 and 384, three routes
 """
 
 from __future__ import annotations
@@ -84,6 +113,10 @@ ASYNC_LARGE = dict(n=5000, d=2, chains=10, cands=2048, n_pending=64,
 # the kernels (wrappers) every suggestion runs; the constrained path adds
 # logdet_q (B4a)
 FLAGSHIP_PATH = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
+# band mode's block width (MCMCConfig.band_block) and the band chooser's
+# problem: 2100 completions pad to 2560 = 20 blocks, 32 for cyclic reduction
+BAND_BLOCK = 128
+BAND_CHOOSER = dict(n=2100, d=2, cands=1000)
 # bench.py PRESETS["constrained"], as time_tpu_constrained sets it up
 CONSTRAINED = dict(n=5000, d=2, chains=10, cands=2048, grid_subset=5,
                    lbfgs_iters=10, p_invalid=0.25)
@@ -356,6 +389,208 @@ def constraint_form_case(torch, gk):
         fail(f"constraint covariance form: finite={finite} {err} tol={tol}")
 
 
+# B5 tolerances on the synthetic input (tests/test_band.py:212-220: SPD
+# diagonal blocks with a 10·I floor, couplings 0.3·N(0, 1)): ld 1e-5 and q
+# 1e-4 relative, the JAX test's own for the Pallas kernel against XLA.
+B5_TOL = {"ld_rel": 1e-5, "q_rel": 1e-4}
+
+
+def cr_synthetic(torch, k, m, b, seed, nan_lane=None):
+    """tests/test_band.py:212-220's input at [k, m, b, b], assembled on the
+    card, with block 2 of ``nan_lane`` negated (non-PD)."""
+    from spearmint_tpu_torch.ops import band
+
+    rng = np.random.RandomState(seed)
+    base = torch.tensor(rng.randn(k, m, b, 2 * b).astype(np.float32),
+                        device="cuda")
+    d = base @ base.mT + 10 * torch.eye(b, device="cuda")
+    del base
+    s = torch.tensor((0.3 * rng.randn(k, m, b, b)).astype(np.float32),
+                     device="cuda")
+    s[:, -1] = 0.0
+    amp2 = torch.tensor(rng.uniform(0.5, 1.5, k).astype(np.float32),
+                        device="cuda")
+    dadd = torch.tensor(rng.uniform(0.01, 0.1, (k, m * b)).astype(
+        np.float32), device="cuda")
+    r = torch.tensor(rng.randn(k, m * b).astype(np.float32), device="cuda")
+    a, bb = band._cr_assemble(d, s, amp2, dadd)
+    if nan_lane is not None:
+        a[nan_lane, 2] = -a[nan_lane, 2]
+    return a, bb, r
+
+
+def block_tridiagonal(torch, a, bb, m, dtype):
+    """The dense [K, m·b, m·b] matrix of the first m blocks of (a, bb)."""
+    k, _, b, _ = a.shape
+    kd = torch.zeros(k, m * b, m * b, dtype=dtype, device="cuda")
+    for i in range(m):
+        kd[:, i*b:(i+1)*b, i*b:(i+1)*b] = a[:, i].to(dtype)
+        if i + 1 < m:
+            kd[:, (i+1)*b:(i+2)*b, i*b:(i+1)*b] = bb[:, i].to(dtype)
+            kd[:, i*b:(i+1)*b, (i+1)*b:(i+2)*b] = bb[:, i].to(dtype).mT
+    return kd
+
+
+def dense_logdet_q(torch, kd, r):
+    """(ld, q, info) of dense K and r by ``cholesky_ex`` + a forward solve."""
+    l, info = torch.linalg.cholesky_ex(kd)
+    w = torch.linalg.solve_triangular(l, r[..., None], upper=False)[..., 0]
+    return (torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1),
+            (w * w).sum(-1), info)
+
+
+def hold_case_b5(torch, band, case, k, m, b, seed, nan_lane):
+    """B5 on the synthetic input against its plain version and float64
+    (dense Cholesky of the whole block-tridiagonal matrix) at B5_TOL; the
+    ``nan_lane`` must give NaN in its own ld and q only.  Returns the max
+    absolute error to the plain version."""
+    a, bb, r = cr_synthetic(torch, k, m, b, seed, nan_lane)
+    ld, q = band.cr_logdet_q(a, bb, r)
+    torch.cuda.synchronize()
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    nan_ok = bool(torch.isnan(ld[nan_lane]) and torch.isnan(q[nan_lane]))
+    good = torch.tensor([i != nan_lane for i in range(k)], device="cuda")
+    ld, q, p_ld, p_q = (v[good] for v in (ld, q, p_ld, p_q))
+    a, bb, r = a[good], bb[good], r[good]
+    o_ld, o_q, info = dense_logdet_q(
+        torch, block_tridiagonal(torch, a, bb, m, torch.float64), r.double())
+    if int(info.max()) != 0:
+        fail(f"{case}: float64 Cholesky failed on the SPD input")
+    err = {"ld_rel_plain": rel(ld, p_ld), "q_rel_plain": rel(q, p_q),
+           "ld_rel_f64": rel(ld, o_ld), "q_rel_f64": rel(q, o_q)}
+    finite = bool(torch.isfinite(ld).all() and torch.isfinite(q).all())
+    emit({"phase": "kernels", "case": case, "kernel": "B5",
+          "shape": [k, m, b, b], "nan_lane": nan_lane,
+          "nan_lane_isolated": nan_ok, "other_lanes_finite": finite,
+          "errors": err, "tolerance": B5_TOL})
+    misses = [f"{key}={v}" for key, v in err.items()
+              if v > B5_TOL[key.split("_")[0] + "_rel"]]
+    if misses or not nan_ok or not finite:
+        fail(f"{case} (B5): {misses} nan_lane_isolated={nan_ok} "
+             f"finite={finite}")
+    return max(absmax(ld, p_ld), absmax(q, p_q))
+
+
+def band_flagship_blocks(torch):
+    """B5's inputs on the band flagship's main path: bench.py's data at pad
+    5120 with flagship_inputs' per-lane length scales (0.3..1.2), reduced
+    by ``band_reduce`` (M built and reduced in float64, 40 blocks of 128;
+    timed by CUDA events over two runs), padded to 64 with inert blocks and
+    assembled at amp2 0.5, noise 0.0025, mean 0 (flagship_inputs' shift)."""
+    from spearmint_tpu_torch.core.kernels import matern52
+    from spearmint_tpu_torch.ops import band
+
+    k = FLAGSHIP["chains"]
+    xp, yp, mask = padded_problem(torch, FLAGSHIP["n"], FLAGSHIP["d"],
+                                  FLAGSHIP["cands"])[:3]
+    n, pad = FLAGSHIP["n"], len(yp)
+    x, y = torch.tensor(xp, device="cuda"), torch.tensor(yp, device="cuda")
+    mask = torch.tensor(mask, device="cuda")
+    ls = torch.linspace(0.3, 1.2, k, device="cuda")[:, None].expand(k, 2)
+    reduce_ms = []
+    for _ in range(2):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        d, s, uy, um = band.band_reduce(x, y, mask, ls.contiguous(),
+                                        matern52, BAND_BLOCK)
+        e1.record()
+        torch.cuda.synchronize()
+        reduce_ms.append(e0.elapsed_time(e1))
+    nb = pad // BAND_BLOCK
+    mb = 1 << (nb - 1).bit_length()
+    ext = (mb - nb) * BAND_BLOCK
+    pad_blocks = (0, 0, 0, 0, 0, mb - nb)
+    amp2 = torch.full((k,), 0.5, device="cuda")
+    dadd = torch.where(mask, 0.0025, 1.0).expand(k, pad).contiguous()
+    a, bb = band._cr_assemble(
+        torch.nn.functional.pad(d, pad_blocks),
+        torch.nn.functional.pad(s, pad_blocks), amp2,
+        torch.nn.functional.pad(dadd, (0, ext), value=1.0))
+    r = torch.nn.functional.pad(uy, (0, ext)).contiguous()
+    tail = torch.cat([uy[:, n:], um[:, n:]], 1)
+    return dict(d=d, s=s, amp2=amp2, dadd=dadd, resid=uy.contiguous(), a=a,
+                bb=bb, r=r, nb=nb, reduce_ms=reduce_ms,
+                tail_max=float(tail.abs().max()))
+
+
+def b5_bound(k, nb, m, b):
+    """(bound ms, what bounds it, the schedule's flops) of B5 on [k, m, b, b]
+    whose first nb blocks are real (the rest inert identity padding).
+
+    The bound is the function's least work: a sequential block Cholesky of
+    the nb real blocks — per block a b×b Cholesky (b³/3) and the forward
+    solve of r (b²), per coupling one b×b triangular solve (b³), one
+    symmetric update (b³, each product counted once) and the update of r
+    (2b²) — and its bytes: a, bb and r read once, ld and q written.  The
+    schedule's own count, cyclic reduction over all m blocks (per
+    eliminated block b³/3 + (2b+1)b² for the factor and solve, 6b³ + 4b²
+    for the products, the symmetric ones in full; the last block b³/3 +
+    b²), is returned beside it as the algorithm's work."""
+    flop = k * (nb * (b ** 3 / 3 + b * b) + (nb - 1) * (2 * b ** 3
+                                                         + 2 * b * b))
+    cr_flop = k * ((m - 1) * (b ** 3 / 3 + (2 * b + 1) * b * b + 6 * b ** 3
+                              + 4 * b * b) + b ** 3 / 3 + b * b)
+    nbytes = 4.0 * (2 * k * m * b * b + k * m * b + 2 * k)
+    t_op, t_b = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_op, t_b), ("operations" if t_op >= t_b else "bytes"),
+            cr_flop)
+
+
+def check_b5(torch):
+    """B5 held at the synthetic shapes, then on the band flagship's own
+    blocks: held at the level the sampler reads (lp = −ld − q/2, relative
+    2e-4 of float64 and of its plain version: cond ≈ 3e5 there) and timed
+    beside its plain version, the dense library route on the same
+    [10, 5120, 5120] matrix, the band scan and the bound."""
+    from spearmint_tpu_torch.ops import band
+
+    max_abs = hold_case_b5(torch, band, "cr_synthetic_flagship_shape",
+                           10, 64, 128, seed=0, nan_lane=3)
+    hold_case_b5(torch, band, "cr_synthetic_small", 3, 8, 16, seed=1,
+                 nan_lane=1)
+
+    fb = band_flagship_blocks(torch)
+    a, bb, r = fb["a"], fb["bb"], fb["r"]
+    k, m, b, _ = a.shape
+    ld, q = band.cr_logdet_q(a, bb, r)
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    kd = block_tridiagonal(torch, a, bb, fb["nb"], torch.float32)
+    rd = r[:, :fb["nb"] * b].contiguous()
+    o_ld, o_q, info = dense_logdet_q(torch, kd.double(), rd.double())
+    lib = lambda: dense_logdet_q(torch, kd, rd)  # noqa: E731
+    l_ld, l_q, l_info = lib()
+    err = {"lp_rel_plain": rel(lp_of(ld, q), lp_of(p_ld, p_q)),
+           "lp_rel_f64": rel(lp_of(ld, q), lp_of(o_ld, o_q)),
+           "library_lp_rel_f64": rel(lp_of(l_ld, l_q), lp_of(o_ld, o_q)),
+           "ld_rel_f64": rel(ld, o_ld), "q_rel_f64": rel(q, o_q),
+           "oracle_info_max": int(info.max()),
+           "library_info_max": int(l_info.max())}
+    bnd, by, cr_flop = b5_bound(k, fb["nb"], m, b)
+    rec = dict(max_abs_err=max_abs,
+               ms=cuda_ms(torch, lambda: band.cr_logdet_q(a, bb, r), 20),
+               plain_ms=cuda_ms(torch, lambda: band.cr_logdet_q_ref(a, bb, r),
+                                1),
+               bound_ms=bnd, bound_by=by,
+               library_ms=cuda_ms(torch, lib, 3))
+    scan_ms = cuda_ms(torch, lambda: band.band_logdet_q(
+        fb["d"], fb["s"], fb["amp2"], fb["dadd"], fb["resid"]), 3)
+    emit({"phase": "kernels", "case": "band_flagship_blocks", "kernel": "B5",
+          "shape": [k, m, b, b], "real_blocks": fb["nb"],
+          "errors": err, "tolerance": {"lp_rel": 2e-4},
+          "band_reduce_ms": fb["reduce_ms"], "band_scan_ms": scan_ms,
+          "serial_floor": f"{int(math.log2(m)) + 1} dependent {b}-column "
+                          "Choleskys",
+          "algorithm_flop": cr_flop,
+          "algorithm_ms_at_peak": 1e3 * cr_flop / PEAK_F32_FLOPS,
+          "times": rec,
+          "padded_tail_max": fb["tail_max"]})
+    if (max(err["lp_rel_plain"], err["lp_rel_f64"]) > 2e-4
+            or err["oracle_info_max"] != 0 or fb["tail_max"] != 0.0):
+        fail(f"band flagship blocks: {err} tail={fb['tail_max']}")
+    return rec
+
+
 def check_kernels(torch, gk):
     """B1-B3 against plain versions and float64 at every shape the main
     paths give them, and timed at the flagship shape; returns per-kernel
@@ -463,6 +698,7 @@ def check_kernels(torch, gk):
         fail(f"flagship M-form X {err}")
     del m, d, r, l2, x3, o_l, x_o
     constraint_form_case(torch, gk)
+    records["B5"] = check_b5(torch)
     return records
 
 
@@ -585,9 +821,22 @@ def pending_witness(torch, args, samples):
                             / h.amp2).tolist())
 
 
-def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
+def reset_launches():
+    from spearmint_tpu_torch.ops import band, gp_kernels
+
+    gp_kernels.reset_launches()
+    band.reset_launches()
+
+
+def launch_counts():
+    from spearmint_tpu_torch.ops import band, gp_kernels
+
+    return {**gp_kernels.launches, **band.launches}
+
+
+def run_suggest(torch, label, reps, n, d, chains, cands, n_pending=0,
                 n_fantasies=10, grid_subset=10, lbfgs_iters=20,
-                profile=False):
+                profile=False, band_joint=False):
     """``reps`` suggestions (the first a warm-up when reps > 1); fails
     unless every rep has finite EI and every kernel was launched.  Without
     pending jobs every rep needs n_ok == chains.  With pending jobs a
@@ -595,8 +844,9 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
     fantasies and drops out of the EI average, so n_ok must equal chains
     less the samples ``pending_witness`` finds indefinite, and be ≥ 1;
     and the float64 pending covariance must be positive definite in every
-    sample.  Then one rep with stage timing and, with ``profile``, one
-    under ``torch.profiler``."""
+    sample.  In band mode B5 must be launched too.  Then one rep with stage
+    timing and, with ``profile``, one under ``torch.profiler`` (in band
+    mode split by the calls of BAND_RANGES)."""
     from spearmint_tpu_torch.engine.suggest import (
         SuggestConfig, init_chain_states, suggest_step,
     )
@@ -605,13 +855,13 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
     xp, yp, mask = args[:3]
     cfg = SuggestConfig(mcmc_iters=1, grid_subset=grid_subset,
                         lbfgs_iters=lbfgs_iters, has_pending=n_pending > 0,
-                        n_fantasies=n_fantasies)
+                        n_fantasies=n_fantasies, band_joint=band_joint)
     hypers = init_chain_states(torch.tensor(yp, device="cuda"),
                                torch.tensor(mask, device="cuda"), d, chains)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    gk.reset_launches()
+    reset_launches()
     times, oks, rep_samples = [], [], []
     for i in range(reps):
         t0 = time.perf_counter()
@@ -627,9 +877,10 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
         if not finite or res.ei.shape != (cands,):
             fail(f"{label} rep {i}: finite={finite} "
                  f"shape={tuple(res.ei.shape)}")
-    counts = dict(gk.launches)
+    counts = launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    if min(counts[k] for k in FLAGSHIP_PATH) <= 0:
+    path = FLAGSHIP_PATH + (("cr_logdet_q",) if band_joint else ())
+    if min(counts[k] for k in path) <= 0:
         fail(f"{label}: a kernel was never launched: {counts}")
     witness = []
     for i, (n_ok, samples) in enumerate(zip(oks, rep_samples)):
@@ -646,8 +897,11 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
     stages = {}
     suggest_step(gen, hypers, *args, cfg, device="cuda", stage_times=stages)
     prof = (profile_step(torch, lambda: suggest_step(
-        gen, hypers, *args, cfg, device="cuda")) if profile else None)
+        gen, hypers, *args, cfg, device="cuda"),
+        top=16 if band_joint else 8,
+        ranges=band_ranges() if band_joint else ()) if profile else None)
     return dict(phase=label, n=n, pad=len(yp), chains=chains, cands=cands,
+                band_joint=band_joint,
                 n_pending=n_pending, n_fantasies=n_fantasies, reps=reps,
                 latency_s=times, median_s=float(np.median(times[-3:])
                                                 if reps > 1 else times[0]),
@@ -658,30 +912,71 @@ def run_suggest(torch, gk, label, reps, n, d, chains, cands, n_pending=0,
                 ei_opt=float(res.ei_opt))
 
 
-def profile_step(torch, fn, top=8):
+def band_ranges():
+    """The calls a band-mode suggestion is split by: the band reduction
+    (geqrf and GEMMs), B5, the assemblies of its inputs and of M, the dense
+    log marginal (B1: the ls move and its re-seed) and its M, the caches."""
+    from spearmint_tpu_torch.core import likelihood, linalg
+    from spearmint_tpu_torch.ops import band
+
+    return [(band, "reduce_to_band"), (band, "cr_logdet_q"),
+            (band, "_cr_assemble"), (band, "unit_cov_matrix"),
+            (linalg, "fma_logdet_q"), (likelihood, "unit_cov_matrix"),
+            (linalg, "cache_factor")]
+
+
+def profile_step(torch, fn, top=8, ranges=()):
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time of all its kernels and their share of the wall time (the
     device's busy share; the profiler's own host cost lowers it), and the
-    kernels that took most device time, by name."""
+    kernels that took most device time, by name.  Each (module, name) of
+    ``ranges`` is wrapped in a ``record_function`` for the call, and the
+    device span of each (first kernel's start to last kernel's end, summed
+    over its calls) is reported with its call count."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    saved = []
+    for mod, attr in ranges:
+        orig = getattr(mod, attr)
+
+        def wrapped(*a, _f=orig, _n=f"{mod.__name__}.{attr}", **kw):
+            with record_function(_n):
+                return _f(*a, **kw)
+
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, wrapped)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    names = {f"{mod.__name__}.{attr}" for mod, attr in ranges}
     by_name, count = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a range shows on the device as a span over its kernels: not a
+        # kernel of its own
+        if e.device_type == DeviceType.CUDA and e.name not in names:
             name = e.name[:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
             count[name] = count.get(name, 0) + 1
     device_s = sum(by_name.values()) / 1e6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    split = {}
+    for ev in prof.key_averages():
+        if ev.key in names:
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.cuda_time_total
+            split[ev.key] = [dev_us / 1e6, ev.count]
     return dict(wall_s=wall, device_s=device_s, busy_share=device_s / wall,
-                top_device_s=[[k, v / 1e6, count[k]] for k, v in ranked])
+                top_device_s=[[k, v / 1e6, count[k]] for k, v in ranked],
+                **({"split_device_span_s_calls": split} if ranges else {}))
 
 
 # --------------------------------------------------------------- phase 7
@@ -726,7 +1021,7 @@ def constrained_witness(torch, xp, vmask, omask, samples, c_samples):
     return out
 
 
-def run_constrained(torch, gk):
+def run_constrained(torch):
     """The constrained preset: one warm-up and two timed reps, each adopting
     the previous rep's chain states (as bench.py does).  Fails unless the
     acquisition is finite, B1, B2, B3 and B4a were launched, and every
@@ -761,7 +1056,7 @@ def run_constrained(torch, gk):
                                         device="cuda", stage_times=stage_times)
 
     torch.cuda.reset_peak_memory_stats()
-    gk.reset_launches()
+    reset_launches()
     times, oks, witness = [], [], []
     for i in range(3):
         t0 = time.perf_counter()
@@ -778,7 +1073,7 @@ def run_constrained(torch, gk):
         oks.append(int(res.n_ok))
         witness.append(constrained_witness(torch, xp, vmask, omask,
                                            res.samples, res.c_samples))
-    counts = dict(gk.launches)
+    counts = launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     if min(counts[k] for k in FLAGSHIP_PATH + ("logdet_q",)) <= 0:
         fail(f"constrained: a kernel of the path was never launched: {counts}")
@@ -801,6 +1096,209 @@ def run_constrained(torch, gk):
                 stage_s=stages, profile=prof, constraint_sweep_profile=sweep,
                 c_ls=cons.ls.tolist(), c_amp2=cons.amp2.tolist(),
                 x_opt=res.x_opt.tolist(), acq_opt=float(res.acq_opt))
+
+
+# --------------------------------------------------------------- band
+def band_state_check(torch):
+    """At the band flagship's initial chain state (init_chain_states of
+    bench.py's data at pad 5120): the padded tail of Qᵀ[y, mask] from the
+    reduction (``band_reduce``) is exactly 0, and the band lp per chain (the factory: the
+    reduction and B5) is within 2e-4 relative of float64 dense lp (M and
+    the factorization in float64) and of B1's lp (``log_marginal``)."""
+    from spearmint_tpu_torch.core.kernels import matern52
+    from spearmint_tpu_torch.core.likelihood import (
+        log_marginal, unit_cov_matrix,
+    )
+    from spearmint_tpu_torch.engine.suggest import init_chain_states
+    from spearmint_tpu_torch.ops import band
+
+    n, chains = FLAGSHIP["n"], FLAGSHIP["chains"]
+    xp, yp, mask = padded_problem(torch, n, FLAGSHIP["d"],
+                                  FLAGSHIP["cands"])[:3]
+    pad = len(yp)
+    x, y = torch.tensor(xp, device="cuda"), torch.tensor(yp, device="cuda")
+    m = torch.tensor(mask, device="cuda")
+    h = init_chain_states(y, m, FLAGSHIP["d"], chains)
+    _, _, uy, um = band.band_reduce(x, y, m, h.ls, matern52, BAND_BLOCK)
+    tail_max = float(torch.cat([uy[:, n:], um[:, n:]], 1).abs().max())
+    reset_launches()
+    lp_band = band.band_marginal_factory(x, y, m, h.ls, matern52,
+                                         BAND_BLOCK)(h.mean, h.amp2, h.noise)
+    counts = launch_counts()
+    lp_b1 = log_marginal(x, y, m, h)
+    # float64 at the same pad (the jitter is the pad's): every chain
+    # starts at the same state, so one lane
+    h64 = [a[:1].double() for a in h]
+    k64 = (h64[1][:, None, None] * unit_cov_matrix(x.double(), m, h64[3])
+           + torch.diag_embed(torch.where(m, h64[2][:, None], 1.0)))
+    l64 = torch.linalg.cholesky(k64)[0]
+    w = torch.linalg.solve_triangular(
+        l64, torch.where(m, y.double() - h64[0], 0.0)[:, None], upper=False)
+    lp64 = float(-torch.log(torch.diagonal(l64)).sum() - 0.5 * (w * w).sum())
+    del k64, l64
+    err = {"lp_rel_f64": float(((lp_band.double() - lp64).abs()
+                                / abs(lp64)).max()),
+           "lp_rel_b1": rel(lp_band, lp_b1),
+           "b1_lp_rel_f64": float(((lp_b1.double() - lp64).abs()
+                                   / abs(lp64)).max())}
+    rec = dict(phase="band_state_check", pad=pad, padded_tail_max=tail_max,
+               lp_band=lp_band.tolist(), lp_b1=lp_b1.tolist(), lp_f64=lp64,
+               errors=err, tolerance={"lp_rel": 2e-4},
+               launches=counts)
+    emit(rec)
+    if (tail_max != 0.0 or max(err["lp_rel_f64"], err["lp_rel_b1"]) > 2e-4
+            or counts["cr_logdet_q"] != 1):
+        fail(f"band state check: {rec}")
+
+
+def band_precision_check(torch):
+    """``--band-precision``: why ``band_reduce`` works in float64.  One lane
+    of the band flagship
+    at ls = 1.2 (its largest M), reduced in float32 (``reduce_to_band`` on
+    the float32 M) and by ``band_reduce``.  For each: the largest shift of
+    T's eigenvalues from M's (float64 ``eigvalsh`` of the dense band
+    matrix and of M), T's least eigenvalue, and lp through B5 at amp2 0.4,
+    noise 1e-3 (about the initial state) against float64 dense lp.  Fails
+    if the float64 reduction's lp is off by more than 2e-4 (relative)."""
+    from spearmint_tpu_torch.core.kernels import matern52
+    from spearmint_tpu_torch.core.likelihood import unit_cov_matrix
+    from spearmint_tpu_torch.ops import band
+
+    n = FLAGSHIP["n"]
+    xp, yp, mask = padded_problem(torch, n, FLAGSHIP["d"],
+                                  FLAGSHIP["cands"])[:3]
+    pad = len(yp)
+    x, y = torch.tensor(xp, device="cuda"), torch.tensor(yp, device="cuda")
+    m = torch.tensor(mask, device="cuda")
+    ls = torch.full((1, 2), 1.2, device="cuda")
+    amp2, noise = torch.full((1,), 0.4, device="cuda"), 1e-3
+    m64 = unit_cov_matrix(x.double(), m, ls.double())[0]
+    eig_m = torch.linalg.eigvalsh(m64)
+    k64 = amp2.double() * m64 + torch.diag(torch.where(m, noise, 1.0)
+                                           .double())
+    lp64 = float(lp_of(*dense_logdet_q(torch, k64, torch.where(
+        m, y, 0.0).double())[:2]))
+    del k64
+    vecs = torch.stack([torch.where(m, y, 0.0), m.float()], -1)[None]
+    routes = {"float32": band.reduce_to_band(
+        unit_cov_matrix(x, m, ls), vecs.contiguous(), BAND_BLOCK)}
+    d, s, uy, um = band.band_reduce(x, y, m, ls, matern52, BAND_BLOCK)
+    routes["float64"] = (d, s, torch.stack([uy, um], -1))
+    nb = pad // BAND_BLOCK
+    mb = 1 << (nb - 1).bit_length()
+    ext = (mb - nb) * BAND_BLOCK
+    dadd = torch.nn.functional.pad(torch.where(m, noise, 1.0)[None],
+                                   (0, ext), value=1.0)
+    rec = {"phase": "band_precision", "ls": 1.2, "amp2": 0.4,
+           "noise": noise, "lp_f64": lp64,
+           "eig_M_least_real": float(eig_m[pad - n])}
+    for name, (d, s, vt) in routes.items():
+        eig_t = torch.linalg.eigvalsh(block_tridiagonal(
+            torch, d, s, nb, torch.float64)[0])
+        a, bb = band._cr_assemble(
+            torch.nn.functional.pad(d, (0, 0, 0, 0, 0, mb - nb)),
+            torch.nn.functional.pad(s, (0, 0, 0, 0, 0, mb - nb)), amp2,
+            dadd)
+        ld, q = band.cr_logdet_q(a, bb, torch.nn.functional.pad(
+            vt[..., 0], (0, ext)).contiguous())
+        rec[name] = {"eig_shift_max": float((eig_t - eig_m).abs().max()),
+                     "eig_T_least": float(eig_t[0]),
+                     "lp": float(lp_of(ld, q)[0]),
+                     "lp_rel_f64": abs(float(lp_of(ld, q)[0]) - lp64)
+                     / abs(lp64)}
+    emit(rec)
+    if not rec["float64"]["lp_rel_f64"] <= 2e-4:
+        fail(f"band precision: {rec}")
+
+
+def chooser_next(n, d, cands, options, seed):
+    """One ``next`` of a new GPEIOptChooser (``options`` plus device=cuda)
+    on bench.py's data with n completions and ``cands`` candidates.
+    Returns (what it returned, whether that is valid, its suggest event,
+    wall seconds)."""
+    from spearmint_tpu_torch.choosers import get_chooser
+
+    x, y, cand = make_problem(n, d, cands, seed=seed)
+    grid = np.concatenate([x, cand])
+    values = np.concatenate([y, np.full(cands, np.nan)])
+    complete = np.arange(n)
+    candidates = np.arange(n, n + cands)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as expt:
+        chooser = get_chooser("GPEIOptChooser", expt,
+                              options + ",device=cuda")
+        sel = chooser.next(grid, values, np.zeros(len(grid)), candidates,
+                           np.array([], int), complete)
+        ev = [e for e in chooser.events.read() if e["kind"] == "suggest"][-1]
+    seconds = time.perf_counter() - t0
+    if isinstance(sel, tuple):
+        out = ["tuple", float(sel[0]), [float(v) for v in sel[1]]]
+        ok = bool(np.isfinite(sel[0]) and np.all((sel[1] >= 0)
+                                                 & (sel[1] <= 1)))
+    else:
+        out = ["index", int(sel)]
+        ok = isinstance(sel, int) and sel in set(candidates.tolist())
+    return out, ok, ev, seconds
+
+
+def run_band_chooser():
+    """One ``next`` of GPEIOptChooser(band_joint_min=2048, chains=10,
+    mcmc_iters=10, burnin=5) on bench.py's data at 2100 completions (pad
+    2560) and 1000 candidates: an index among the candidates or an (ei, x)
+    tuple with x in the unit box, band mode on, B5 launched, n_ok > 0."""
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+
+    c = BAND_CHOOSER
+    reset_launches()
+    out, ok, ev, seconds = chooser_next(
+        c["n"], c["d"], c["cands"],
+        "band_joint_min=2048,chains=10,mcmc_iters=10,burnin=5", seed=4)
+    rec = dict(phase="band_chooser", n=c["n"], pad=pad_bucket(c["n"]),
+               returned=out,
+               n_ok=ev["n_ok"], band_joint=ev["band_joint"],
+               latency_s=ev["latency_s"], seconds=seconds,
+               launches=launch_counts())
+    emit(rec)
+    if (not ok or ev["n_ok"] <= 0 or ev["band_joint"] is not True
+            or rec["launches"]["cr_logdet_q"] <= 0):
+        fail(f"band chooser: {rec}")
+    return rec
+
+
+def small_pad_times(torch):
+    """``--small-pads``: one GPEIOptChooser ``next`` (chains=10,
+    mcmc_iters=10, burnin=5, 1000 candidates) at 250 and 380 completions
+    (pads 256 and 384, below ``kernel_ok``) by each factorization route such
+    a pad could take: the library Cholesky (the port's), the column sweep
+    (``gp_kernels.column_cholesky``, the port's CPU route) and the blocked
+    kernels B1-B3 (every pad sent to them).  Each route runs twice in a row;
+    both wall times are kept, the second without first-call set-up."""
+    from spearmint_tpu_torch.core import linalg
+    from spearmint_tpu_torch.ops import gp_kernels
+
+    routes = {"library": {},
+              "column": {"small_cholesky": gp_kernels.column_cholesky},
+              "blocked": {"kernel_ok": lambda n: True}}
+    for n in (250, 380):
+        for route, patch in routes.items():
+            saved = {k: getattr(linalg, k) for k in patch}
+            for k, v in patch.items():
+                setattr(linalg, k, v)
+            try:
+                runs = []
+                for _ in range(2):
+                    reset_launches()
+                    out, ok, ev, seconds = chooser_next(
+                        n, 2, 1000, "chains=10,mcmc_iters=10,burnin=5",
+                        seed=5)
+                    runs.append(dict(seconds=seconds, n_ok=ev["n_ok"],
+                                     valid=ok, latency_s=ev["latency_s"],
+                                     launches=launch_counts()))
+            finally:
+                for k, v in saved.items():
+                    setattr(linalg, k, v)
+            emit({"phase": "small_pads", "n": n,
+                  "pad": linalg.pad_bucket(n), "route": route, "runs": runs})
 
 
 # --------------------------------------------------------------- phase 8
@@ -850,21 +1348,24 @@ def branin_loop(torch, seed):
                 state_file=state)
 
 
-def run_chooser(torch, gk):
-    gk.reset_launches()
+def run_chooser(torch):
+    """The Branin loop; its pads (16 to 28) are below ``kernel_ok``, so the
+    gate sends every factorization to the small-pad route and no kernel
+    may be launched."""
+    reset_launches()
     rec = branin_loop(torch, BRANIN_SEED)
-    rec["launches"] = dict(gk.launches)
+    rec["launches"] = launch_counts()
     emit(rec)
     if rec["evaluations"] != 16 or not rec["best"] < 3.0 \
             or not rec["state_file"]:
         fail(f"chooser loop: {rec}")
-    if min(rec["launches"][k] for k in FLAGSHIP_PATH) <= 0:
-        fail(f"chooser loop: a kernel was never launched: {rec}")
+    if max(rec["launches"].values()) != 0:
+        fail(f"chooser loop: a kernel was launched below pad 512: {rec}")
     return rec
 
 
 # --------------------------------------------------------------- phase 9
-def run_constrained_chooser(torch, gk):
+def run_constrained_chooser(torch):
     """Three ``next`` calls of the port's GPConstrainedEIChooser on the
     problem of tests/test_constrained.py (40-point grid, 12 completions,
     violations where x0 > 0.5), each by a new chooser object that resumes
@@ -880,7 +1381,7 @@ def run_constrained_chooser(torch, gk):
     done = list(range(12))
     for i in done:
         values[i] = objective(grid[i]) + 0.1 * rng.randn()
-    gk.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     outs, n_oks = [], []
     with tempfile.TemporaryDirectory() as expt:
@@ -913,10 +1414,11 @@ def run_constrained_chooser(torch, gk):
                 expt, "GPConstrainedEIChooser_state.npz")) as z:
             keys = sorted(z.files)
     rec = dict(phase="constrained_chooser", calls=outs, n_ok=n_oks,
-               launches=dict(gk.launches), state_keys=keys,
+               launches=launch_counts(), state_keys=keys,
                seconds=time.perf_counter() - t0)
     emit(rec)
-    if rec["launches"]["logdet_q"] <= 0 or min(n_oks) <= 0 \
+    # pad 16 is below kernel_ok: the gate's route launches no kernel
+    if max(rec["launches"].values()) != 0 or min(n_oks) <= 0 \
             or "c_ff" not in keys:
         fail(f"constrained chooser: {rec}")
     return rec
@@ -949,6 +1451,12 @@ def main(argv) -> int:
         for seed in argv[1].split(","):
             emit(branin_loop(torch, int(seed)))
         return 0
+    if argv[:1] == ["--band-precision"]:
+        band_precision_check(torch)
+        return 0
+    if argv[:1] == ["--small-pads"]:
+        small_pad_times(torch)
+        return 0
 
     records = check_kernels(torch, gk)
     emit({"phase": "clocks_after_kernels",
@@ -956,17 +1464,22 @@ def main(argv) -> int:
           "power_draw": nvidia_smi("power.draw")})
     check_small_input(torch)
 
-    flag = run_suggest(torch, gk, "flagship", 4, profile=True, **FLAGSHIP)
+    flag = run_suggest(torch, "flagship", 4, profile=True, **FLAGSHIP)
     emit(flag)
-    pend = run_suggest(torch, gk, "pending_async_large", 1, **ASYNC_LARGE)
+    pend = run_suggest(torch, "pending_async_large", 1, **ASYNC_LARGE)
     emit(pend)
-    cons = run_constrained(torch, gk)
+    cons = run_constrained(torch)
     emit(cons)
+    band_rec = run_suggest(torch, "band", 4, profile=True,
+                           band_joint=True, **FLAGSHIP)
+    emit(band_rec)
+    band_state_check(torch)
     paths = {"flagship": flag["launches"], "pending": pend["launches"],
-             "constrained": cons["launches"],
-             "branin_chooser": run_chooser(torch, gk)["launches"],
+             "constrained": cons["launches"], "band": band_rec["launches"],
+             "branin_chooser": run_chooser(torch)["launches"],
              "constrained_chooser": run_constrained_chooser(
-                 torch, gk)["launches"]}
+                 torch)["launches"],
+             "band_chooser": run_band_chooser()["launches"]}
 
     src = "spearmint_tpu_torch/ops/csrc/"
     pallas = "spearmint_tpu/ops/pallas_gp.py:"
@@ -982,6 +1495,8 @@ def main(argv) -> int:
                 "constrained"),
         "B4b": ("factor_logdet_q", src + "shifted_chol.cu", pallas + "743",
                 None),
+        "B5": ("cr_logdet_q", src + "cyclic_reduction.cu",
+               "spearmint_tpu/ops/band.py:409", "band"),
     }
     kernels = []
     for key, (name, source, rep, main_path) in replaces.items():

@@ -14,9 +14,11 @@ burned_in), so an experiment written by either package resumes under the
 other.  The random streams differ (``torch.Generator`` seeded with
 ``key_state`` here, ``jax.random.PRNGKey`` there).
 
-Not ported yet, and refused with NotImplementedError: band mode
-(``band_joint_min`` ≠ 0, ROADMAP A11), ``profile_dir`` (ROADMAP A6) and
-the observation-sharded path across several GPUs (ROADMAP A10).
+Band mode (``band_joint_min`` > 0) routes as the JAX chooser does, with
+the card in place of the TPU (``band_gate``): on the CPU the chooser runs
+dense, as the JAX one does off the TPU.  Not ported yet, and refused with
+NotImplementedError: ``profile_dir`` (ROADMAP A6) and the
+observation-sharded path across several GPUs (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ def use_obs_gate(obs_shard_min: int, ndev: int, pad: int,
             and pad % ndev == 0 and n_pending == 0)
 
 
+def band_gate(band_joint_min: int, pad: int, use_obs: bool,
+              device: torch.device) -> bool:
+    """The JAX chooser's band-mode routing (``GPEIOptChooser.py:304-308``):
+    a joint move through the per-move band reduction from pad
+    ``band_joint_min`` on 128-aligned pads, off the observation-sharded
+    path, and on the card only (the JAX one: on the TPU only)."""
+    return (band_joint_min > 0 and pad >= band_joint_min and pad % 128 == 0
+            and not use_obs and device.type == "cuda")
+
+
 class GPEIOptChooser:
     def __init__(
         self,
@@ -64,13 +76,10 @@ class GPEIOptChooser:
         obs_shard_min=8192,
         chain_chunk=-1,        # -1: auto memory policy; 0: one batch
         explicit_inverse=-1,   # -1: auto (off at large pad); 0/1 force
-        band_joint_min=0,
+        band_joint_min=0,      # pad from which the joint move runs in
+                               # band mode (ops/band, kernel B5); 0: off
         device="cuda",
     ):
-        if int(band_joint_min) != 0:
-            raise NotImplementedError(
-                "band_joint_min: band mode (ops/band) is not ported yet — "
-                "ROADMAP A11")
         if str(profile_dir):
             raise NotImplementedError(
                 "profile_dir: profiling is not ported yet — ROADMAP A6")
@@ -88,6 +97,7 @@ class GPEIOptChooser:
         self.obs_shard_min = int(obs_shard_min)
         self.chain_chunk = int(chain_chunk)
         self.explicit_inverse = int(explicit_inverse)
+        self.band_joint_min = int(band_joint_min)
         self.seed = int(seed)
         self.optimize = True  # GPEIChooser flips this off
         self.state_file = os.path.join(
@@ -212,7 +222,8 @@ class GPEIOptChooser:
 
         ndev = (torch.cuda.device_count() if self.device.type == "cuda"
                 else 1)
-        if use_obs_gate(self.obs_shard_min, ndev, pad, p):
+        use_obs = use_obs_gate(self.obs_shard_min, ndev, pad, p)
+        if use_obs:
             raise NotImplementedError(
                 f"pad {pad} on {ndev} GPUs routes to the observation-"
                 "sharded path, which is not ported yet — ROADMAP A10")
@@ -245,6 +256,7 @@ class GPEIOptChooser:
             n_fantasies=self.pending_samples,
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
+            band_joint=band_gate(self.band_joint_min, pad, use_obs, dev),
         )
         t0 = time.perf_counter()
         res = suggest_step(gen, self._hypers, xt, yt, mt, pend_p, pend_mask,
@@ -266,6 +278,7 @@ class GPEIOptChooser:
             amp2_med=float(res.hypers.amp2.median()),
             noise_med=float(res.hypers.noise.median()),
             mode="chains", n_ok=n_ok, device=str(dev),
+            band_joint=cfg.band_joint,
         )
         if n_ok == 0:
             # every sample's factorization failed: the averaged EI carries

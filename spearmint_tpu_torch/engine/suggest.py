@@ -3,10 +3,11 @@
 JAX counterpart: ``spearmint_tpu/engine/suggest.py`` (``suggest_step``).
 
   chains × mcmc_iters batched slice-sampling sweeps (kernel B1 per
-  evaluation) → one cache per sample (B2, and B3 for L⁻¹) → fantasized
-  pending outcomes and augmented caches when jobs are pending → EI[S, C]
-  over the candidates, NaN-robust average over samples → top-k starts →
-  batched projected L-BFGS on the sample-averaged EI.
+  evaluation; in band mode the joint move's evaluations are B5, after one
+  band reduction per move) → one cache per sample (B2, and B3 for L⁻¹)
+  → fantasized pending outcomes and augmented caches when jobs are
+  pending → EI[S, C] over the candidates, NaN-robust average over samples
+  → top-k starts → batched projected L-BFGS on the sample-averaged EI.
 
 The chains axis is a leading batch axis; ``chain_chunk`` runs it in
 sequential groups to bound the [group, N, N] buffers.  Shapes are padded
@@ -26,7 +27,7 @@ from spearmint_tpu_torch.acquire.optimize import minimize_lbfgs_b
 from spearmint_tpu_torch.core.kernels import get_kernel
 from spearmint_tpu_torch.core.likelihood import GPHypers
 from spearmint_tpu_torch.mcmc.chains import (
-    MCMCConfig, init_hypers, marginal_at, sample_hypers_lp,
+    MCMCConfig, init_hypers, sample_hypers_lp, seed_lp,
 )
 from spearmint_tpu_torch.utils.platform import resolve_device
 
@@ -45,7 +46,9 @@ class SuggestConfig(NamedTuple):
     n_fantasies: int = 10          # fantasy draws per hyper sample
     chain_chunk: int = 0           # >0: chain/sample axis in groups
     explicit_inverse: bool = True  # materialize L⁻¹ per sample (B3)
-    band_joint: bool = False       # not ported (ROADMAP A11): raises
+    band_joint: bool = False       # joint move via per-move band
+                                   # reduction (ops/band); the chooser
+                                   # gates it on band_joint_min
 
     @property
     def kernel(self):
@@ -129,7 +132,7 @@ def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig):
     h_parts, s_parts = [], []
     for sl in _groups(hypers.mean.shape[0], config.chain_chunk):
         h = _take(hypers, sl)
-        lp = marginal_at(x, y, mask, h, config.mcmc)
+        lp = seed_lp(x, y, mask, h, config.mcmc)
         its = []
         for _ in range(config.mcmc_iters):
             h, lp = sample_hypers_lp(gen, h, lp, x, y, mask, config.mcmc)

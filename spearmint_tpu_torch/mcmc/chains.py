@@ -10,8 +10,9 @@ operations, kept exactly:
 
 Chains are a leading batch axis of ``GPHypers``; the GP log-marginal is
 carried across the joint → ls → next-sweep sequence (``sample_hypers_lp``)
-so each move skips its initial evaluation.  The band-mode joint move
-(``band_joint``) is not ported (ROADMAP A11) and raises.
+so each move skips its initial evaluation.  In band mode (``band_joint``)
+the joint move evaluates through one band reduction per move
+(``ops/band``) and each move seeds its own lp0, so no carry is used.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from spearmint_tpu_torch.core import linalg, priors
 from spearmint_tpu_torch.core.kernels import matern52
 from spearmint_tpu_torch.core.likelihood import GPHypers, log_marginal
 from spearmint_tpu_torch.mcmc.slice import slice_sample
+from spearmint_tpu_torch.ops.band import band_marginal_factory
 
 
 class MCMCConfig(NamedTuple):
@@ -35,7 +37,11 @@ class MCMCConfig(NamedTuple):
     amp2_scale: float = priors.AMP2_SCALE
     kernel: Callable = matern52
     marginal: Callable = log_marginal
-    band_joint: bool = False       # not ported (ROADMAP A11): raises
+    # Band mode: the joint move reduces M to block-tridiagonal once per
+    # move and evaluates in O(n·b²) (ops/band); needs a contiguous mask
+    # and n % band_block == 0 (every pad bucket ≥ 512 is).
+    band_joint: bool = False
+    band_block: int = 128
 
 
 def init_hypers(y: torch.Tensor, mask: torch.Tensor, ndim: int) -> GPHypers:
@@ -50,8 +56,12 @@ def init_hypers(y: torch.Tensor, mask: torch.Tensor, ndim: int) -> GPHypers:
     )
 
 
-def _joint_logprob(vec, x, y, mask, ls, config: MCMCConfig):
-    """Log posterior of (mean, amp2[, noise]) [K, 2|3] at fixed ls [K, D]."""
+def _joint_logprob(vec, x, y, mask, ls, config: MCMCConfig,
+                   marginal3: Callable | None = None):
+    """Log posterior of (mean, amp2[, noise]) [K, 2|3] at fixed ls [K, D].
+
+    ``marginal3`` (mean, amp2, noise) → lp [K] replaces ``config.marginal``
+    (band mode passes the per-move banded closure)."""
     mean, amp2 = vec[:, 0], vec[:, 1]
     noise = (torch.full_like(mean, priors.DEFAULT_NOISE) if config.noiseless
              else vec[:, 2])
@@ -60,8 +70,11 @@ def _joint_logprob(vec, x, y, mask, ls, config: MCMCConfig):
              & (amp2 > 0.0) & (noise > 0.0))
     amp2_s = torch.where(amp2 > 0.0, amp2, 1.0)
     noise_s = torch.where(noise > 0.0, noise, 1.0)
-    lp = config.marginal(x, y, mask, GPHypers(mean, amp2_s, noise_s, ls),
-                         config.kernel)
+    if marginal3 is None:
+        lp = config.marginal(x, y, mask, GPHypers(mean, amp2_s, noise_s, ls),
+                             config.kernel)
+    else:
+        lp = marginal3(mean, amp2_s, noise_s)
     lp = lp + _joint_prior_terms(amp2_s, noise_s, config)
     return torch.where(valid, lp, float("-inf"))
 
@@ -93,20 +106,27 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
     ``lp_mar`` [K] is ``config.marginal`` at ``hypers``.  The joint move's
     log posterior at the current state is lp_mar + prior terms; the ls
     move's at the post-joint state is the joint move's accepted lp minus
-    the same terms.  Returns (hypers', lp_mar')."""
-    if config.band_joint:
-        raise NotImplementedError(
-            "band_joint (ops/band) is not ported yet: ROADMAP A11")
+    the same terms.  In band mode ``lp_mar`` is unused (None will do): the
+    joint move seeds with one banded evaluation and the ls move with one
+    dense one, so each compares lp values of its own path.  Returns
+    (hypers', lp_mar')."""
     if config.noiseless:
         vec0 = torch.stack([hypers.mean, hypers.amp2], dim=1)
     else:
         vec0 = torch.stack([hypers.mean, hypers.amp2, hypers.noise], dim=1)
 
-    def joint_lp(vec):
-        return _joint_logprob(vec, x, y, mask, hypers.ls, config)
+    if config.band_joint:
+        marginal3 = band_marginal_factory(x, y, mask, hypers.ls,
+                                          config.kernel, config.band_block)
+        lp0_joint = None
+    else:
+        marginal3 = None
+        lp0_joint = lp_mar + _joint_prior_terms(hypers.amp2, hypers.noise,
+                                                config)
 
-    lp0_joint = lp_mar + _joint_prior_terms(hypers.amp2, hypers.noise,
-                                            config)
+    def joint_lp(vec):
+        return _joint_logprob(vec, x, y, mask, hypers.ls, config, marginal3)
+
     vec, lp_joint = slice_sample(gen, vec0, joint_lp, compwise=False,
                                  lp0=lp0_joint)
     mean, amp2 = vec[:, 0], vec[:, 1]
@@ -117,7 +137,8 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
     def ls_lp(ls):
         return _ls_logprob(ls, x, y, mask, mid, config)
 
-    lp0_ls = lp_joint - _joint_prior_terms(amp2, noise, config)
+    lp0_ls = (None if config.band_joint
+              else lp_joint - _joint_prior_terms(amp2, noise, config))
     ls, lp_ls = slice_sample(gen, hypers.ls, ls_lp, compwise=True,
                              lp0=lp0_ls)
     return GPHypers(mean, amp2, noise, ls), lp_ls
@@ -128,10 +149,19 @@ def marginal_at(x, y, mask, hypers: GPHypers, config: MCMCConfig):
     return config.marginal(x, y, mask, hypers, config.kernel)
 
 
+def seed_lp(x, y, mask, hypers: GPHypers, config: MCMCConfig):
+    """The carry that starts a run of sweeps: ``marginal_at``, or None in
+    band mode, where no move reads it (the JAX package's compiler drops
+    that evaluation; eager PyTorch would pay one B1 call for it)."""
+    if config.band_joint:
+        return None
+    return marginal_at(x, y, mask, hypers, config)
+
+
 def sample_hypers(gen, hypers: GPHypers, x, y, mask,
                   config: MCMCConfig = MCMCConfig()) -> GPHypers:
     """One full sweep of every chain, re-evaluating the marginal first."""
-    lp_mar = marginal_at(x, y, mask, hypers, config)
+    lp_mar = seed_lp(x, y, mask, hypers, config)
     out, _ = sample_hypers_lp(gen, hypers, lp_mar, x, y, mask, config)
     return out
 
@@ -139,7 +169,7 @@ def sample_hypers(gen, hypers: GPHypers, x, y, mask,
 def burnin(gen, hypers: GPHypers, x, y, mask, steps: int,
            config: MCMCConfig = MCMCConfig()) -> GPHypers:
     """Reference burn-in: ``steps`` carried sweeps of every chain."""
-    lp = marginal_at(x, y, mask, hypers, config)
+    lp = seed_lp(x, y, mask, hypers, config)
     for _ in range(steps):
         hypers, lp = sample_hypers_lp(gen, hypers, lp, x, y, mask, config)
     return hypers

@@ -29,10 +29,12 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures of the entry points: every pointer and the stream are
 # c_void_p (a plain int would cut a 64-bit pointer), sizes are c_int.
 # spm_shifted_chol takes a null dshift for the unshifted kernels (B4).
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     "shifted_chol": {"spm_shifted_chol": [_P] * 8 + [_I, _I, _I, _P]},
     "tri_inverse": {"spm_tri_inverse": [_P, _P, _I, _I, _P]},
+    "cyclic_reduction": {"spm_cyclic_reduction": [_P] * 6 + [_I] * 3
+                         + [_L, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

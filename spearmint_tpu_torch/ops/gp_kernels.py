@@ -47,8 +47,12 @@ def reset_launches() -> None:
 
 
 # ------------------------------------------------------------ plain versions
-def _factor_tile(a: torch.Tensor) -> torch.Tensor:
-    """Unblocked right-looking Cholesky of [K, b, b] (lower triangle read)."""
+def column_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Unblocked right-looking Cholesky of [K, b, b] by b column steps
+    (lower triangle read, pivot d2·rsqrt(d2): a non-PD lane is NaN, never
+    ±inf) — the kernels' diagonal-tile sweep.  Identity rows after the
+    real ones stay exactly inert, so the real block's bits do not depend
+    on b."""
     a = torch.tril(a)
     for j in range(a.shape[-1]):
         d2 = a[:, j, j]
@@ -84,7 +88,7 @@ def _factor_ref(m0, dshift, resid):
         tile = a[:, k0:k1, k0:k1]
         if dshift is not None:
             tile = tile + torch.diag_embed(dshift[:, k0:k1])
-        l = _factor_tile(tile)
+        l = column_cholesky(tile)
         x = _invert_tile(l)
         wk = (x @ w[:, k0:k1, None])[..., 0]
         w[:, k0:k1] = wk

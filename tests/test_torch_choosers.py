@@ -194,9 +194,21 @@ def test_memory_policy_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_chooser("GPEIOptChooser", str(tmp_path),
-                    "band_joint_min=4096,device=cpu")
+    # band mode is ported: the option is taken, and on the CPU the chooser
+    # runs dense (band_gate), as the JAX chooser does off the TPU
+    ch = get_chooser("GPEIOptChooser", str(tmp_path),
+                     "band_joint_min=16,chains=2,mcmc_iters=2,burnin=2,"
+                     "grid_subset=2,lbfgs_iters=3,device=cpu")
+    assert ch.band_joint_min == 16
+    rng = np.random.RandomState(0)
+    grid = rng.rand(20, 2)
+    values = np.full(20, np.nan)
+    values[:6] = rng.randn(6)
+    sel = ch.next(grid, values, np.zeros(20), np.arange(6, 20),
+                  np.array([], int), np.arange(6))
+    assert isinstance(sel, (int, tuple))
+    ev = [e for e in ch.events.read() if e["kind"] == "suggest"][-1]
+    assert ev["band_joint"] is False and ev["n_ok"] > 0
     with pytest.raises(NotImplementedError, match="A6"):
         get_chooser("GPEIOptChooser", str(tmp_path),
                     f"profile_dir={tmp_path},device=cpu")

@@ -216,6 +216,49 @@ def test_cache_factor_and_factor_solve_match_jax(rng, n, n_real):
     assert float(torch.triu(linv, 1).abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("n,n_real", [(16, 13), (224, 200), (256, 230)])
+def test_small_pads_take_the_xla_route_like_jax(rng, n, n_real):
+    """Below ``kernel_ok`` (pads under 512) all four dispatch points run
+    the JAX package's XLA sequence on the assembled K — an unblocked
+    Cholesky, triangular solves, L⁻¹ by a solve against I — and match the
+    JAX dispatch per lane: ld 1e-5 and q 1e-4 relative, L 1e-5 absolute,
+    L⁻¹ 1e-4 and α 1e-3 of their largest entries (two float32
+    factorizations of cond ~1e3)."""
+    m0, amp2, dadd, r = _dispatch_case(rng, 3, n, n_real)
+    assert not tlin.kernel_ok(n)
+    args_t = (_t(m0), _t(amp2), _t(dadd), _t(r))
+    args_j = tuple(map(jnp.asarray, (m0, amp2, dadd, r)))
+    kmat = tlin._assemble(*args_t[:3])
+    for (ld, q), (ld0, q0) in (
+            (tlin.fma_logdet_q(*args_t),
+             jax.vmap(jlin.fma_logdet_q)(*args_j)),
+            (tlin.chol_logdet_q(kmat, args_t[3]),
+             jax.vmap(jlin.chol_logdet_q)(jnp.asarray(kmat.numpy()),
+                                          args_j[3]))):
+        np.testing.assert_allclose(ld.numpy(), np.asarray(ld0), rtol=1e-5)
+        np.testing.assert_allclose(q.numpy(), np.asarray(q0), rtol=1e-4)
+    chol, linv, alpha = tlin.cache_factor(*args_t)
+    chol0, linv0, alpha0 = jax.vmap(jlin.cache_factor)(*args_j)
+    chol2, alpha2 = tlin.factor_solve(*args_t)
+    _, alpha3 = jax.vmap(jlin.factor_solve)(*args_j)
+    linv0, alpha0 = np.asarray(linv0), np.asarray(alpha0)
+    np.testing.assert_allclose(chol.numpy(), np.asarray(chol0), atol=1e-5)
+    np.testing.assert_array_equal(chol2.numpy(), chol.numpy())
+    np.testing.assert_allclose(linv.numpy(), linv0,
+                               atol=1e-4 * np.abs(linv0).max())
+    for a, want in ((alpha, alpha0), (alpha2, np.asarray(alpha3))):
+        np.testing.assert_allclose(a.numpy(), want,
+                                   atol=1e-3 * np.abs(want).max())
+
+
+def test_kernel_gate_is_the_jax_packages():
+    from spearmint_tpu.ops import pallas_gp
+
+    for n in (16, 128, 224, 256, 384, 500, 511, 512, 576, 640, 1000, 1024,
+              1280, 2048, 2560, 5120, 5248, 5376, 8192):
+        assert tlin.kernel_ok(n) == pallas_gp.supported(n, on_tpu=True), n
+
+
 # ---------------------------------------------------------- likelihood
 def test_effective_jitter_matches_jax():
     for n in (1, 16, 2048, 2049, 5120, 5248, 10240):
@@ -254,9 +297,9 @@ def test_covariances_match_jax(rng):
 
 @pytest.mark.parametrize("n,pad", [(12, 16), (50, 56), (64, 64)])
 def test_log_marginal_matches_jax_and_golden(rng, n, pad):
-    """Per lane against JAX (1e-5 relative: the f32 shifted form vs XLA's
-    assembled factorization) and the float64 oracle (2e-4, the JAX
-    package's own golden tolerance)."""
+    """Per lane against JAX (1e-5 relative: the port's small-pad route, a
+    column Cholesky of the assembled K on the CPU, vs XLA's) and the
+    float64 oracle (2e-4, the JAX package's own golden tolerance)."""
     d = 3
     x = rng.rand(n, d)
     y = rng.randn(n)

@@ -252,13 +252,14 @@ def test_every_small_pad_factors(n, form):
 
 
 def test_shifted_rescale_matches_assembled_form():
-    """linalg's one route for both devices — factor M + diag(dadd/amp2),
-    rescale by amp2 — against float64 on the assembled K = amp2·M +
-    diag(dadd), padded rows included.  Tolerances of the JAX package's
-    shifted-kernel tests: ld 2e-4, q 2e-3, √amp2·L̃ 2e-3/2e-4, α 2e-2/2e-3
-    (α is K⁻¹r, amplified by the condition number)."""
+    """linalg's one route for both devices at ``kernel_ok`` pads — factor
+    M + diag(dadd/amp2), rescale by amp2 — against float64 on the assembled
+    K = amp2·M + diag(dadd), padded rows included.  Tolerances of the JAX
+    package's shifted-kernel tests: ld 2e-4, q 2e-3, √amp2·L̃ 2e-3/2e-4, α
+    2e-2/2e-3 (α is K⁻¹r, amplified by the condition number)."""
     rng = np.random.default_rng(5)
-    k_batch, n, npad = 3, 384, 21
+    k_batch, n, npad = 3, 512, 21
+    assert tlin.kernel_ok(n)
     f = rng.standard_normal((k_batch, n, 8)).astype(np.float32)
     m0 = np.einsum("knd,kmd->knm", f, f) / 8 + 1e-3 * np.eye(n)
     mask = np.arange(n) < n - npad

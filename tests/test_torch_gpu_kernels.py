@@ -10,9 +10,10 @@ port's machine need not have; this file imports neither JAX nor
 ``cuda`` fixture.
 
 Each kernel (B1 ``shifted_logdet_q``, B2 ``shifted_factor_logdet_q``, B3
-``tri_inverse``, and B4a ``logdet_q`` / B4b ``factor_logdet_q`` on
-K = M + diag(d) assembled in float32) is held against its plain PyTorch
-version on the same card and against a float64 ``torch.linalg`` oracle,
+``tri_inverse``, B4a ``logdet_q`` / B4b ``factor_logdet_q`` on
+K = M + diag(d) assembled in float32, and B5 ``cr_logdet_q``, cyclic
+reduction, at [3, 8, 16, 16] and [2, 64, 128, 128]) is held against its
+plain PyTorch version on the same card and against a float64 oracle,
 at a ragged width, at the production pad 1024 (the pad of
 ``tests/test_tpu_smoke.py``) and at the pending flagship's augmented pad
 5248.  Inputs are M = F Fᵀ/8 (rank 8)
@@ -229,13 +230,45 @@ def test_log_marginal_and_ei_on_the_card_match_f64(cuda):
     assert _abs(var, var0) < 5e-3 * float(var0.abs().max())
 
 
+@pytest.mark.parametrize("n", [16, 224, 256])
+def test_small_pads_take_the_library_route_on_the_card(cuda, n):
+    """Below ``linalg.kernel_ok`` the four dispatch points factor the
+    assembled K = amp2·M + diag(d) with the library Cholesky and launch no
+    kernel; held against float64 at the kernels' tolerances (L⁻¹ and α
+    relative to their largest entry)."""
+    from spearmint_tpu_torch.core import linalg
+
+    m, d, r = _case(3, n, seed=7)
+    amp2 = torch.tensor([0.5, 1.0, 2.0], device="cuda")
+    km = amp2[:, None, None] * m
+    cuda.reset_launches()
+    ld, q = linalg.fma_logdet_q(m, amp2, d, r)
+    ld2, q2 = linalg.chol_logdet_q(km + torch.diag_embed(d), r)
+    chol, linv, alpha = linalg.cache_factor(m, amp2, d, r)
+    chol2, alpha2 = linalg.factor_solve(m, amp2, d, r)
+    torch.cuda.synchronize()
+    assert max(cuda.launches.values()) == 0
+    o_ld, o_q, o_chol, _ = _oracle(km, d, r)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda").expand(3, n, n)
+    o_linv = torch.linalg.solve_triangular(o_chol, eye, upper=False)
+    o_alpha = torch.cholesky_solve(r.double()[..., None], o_chol)[..., 0]
+    for a, b in ((ld, q), (ld2, q2)):
+        assert _rel(a, o_ld) < TOL["ld"] and _rel(b, o_q) < TOL["q"]
+    for c in (chol, chol2):
+        assert _abs(c, o_chol) < TOL["L"]
+    assert _abs(linv, o_linv) < TOL["X"] * float(o_linv.abs().max())
+    for a in (alpha, alpha2):
+        assert _abs(a, o_alpha) < TOL["w"] * float(o_alpha.abs().max())
+
+
 def test_suggest_step_on_the_card_goes_through_every_kernel(cuda):
+    """At pad 512, the smallest the kernels take (``linalg.kernel_ok``)."""
     from spearmint_tpu_torch.engine.suggest import (
         SuggestConfig, init_chain_states, suggest_step,
     )
 
     gk = cuda
-    n, pad = 200, 224
+    n, pad = 500, 512
     rng = np.random.RandomState(1)
     xp = np.zeros((pad, 2), np.float32); xp[:n] = rng.rand(n, 2)
     yp = np.zeros(pad, np.float32)
@@ -259,11 +292,12 @@ def test_suggest_step_on_the_card_goes_through_every_kernel(cuda):
 
 
 def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
-    """The constrained suggestion at pad 224 launches B1, B2, B3 and B4a
+    """The constrained suggestion at pad 512 launches B1, B2, B3 and B4a
     (the constraint ls move), with a finite acquisition.  The constraint
-    chains start at ls = 0.2: at n = 200 the jitter is 1e-6, and from
-    ls ≈ 0.5 (cond ≈ 1e8) the blocked float32 factorization gives NaN,
-    in the Pallas kernel as here (ROADMAP C2)."""
+    chains start at ls = 0.15: at n = 500 the jitter is 1e-6 and the
+    constraint GP has no noise term, so from ls = 1 (cond far above 1e8)
+    the blocked float32 factorization gives NaN, in the Pallas kernel as
+    here (ROADMAP C2; below pad 512 that route is no longer taken)."""
     from spearmint_tpu_torch.engine.constrained import (
         init_constraint_states, suggest_step_constrained,
     )
@@ -272,7 +306,7 @@ def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
     )
 
     gk = cuda
-    n, pad = 200, 224
+    n, pad = 500, 512
     rng = np.random.RandomState(2)
     xp = np.zeros((pad, 2), np.float32); xp[:n] = rng.rand(n, 2)
     obs = np.arange(pad) < n
@@ -281,7 +315,7 @@ def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
     h = init_chain_states(torch.tensor(yp, device="cuda"),
                           torch.tensor(valid, device="cuda"), 2, 4)
     c = init_constraint_states(2, pad, 4, device="cuda")
-    c = c._replace(ls=torch.full_like(c.ls, 0.2))
+    c = c._replace(ls=torch.full_like(c.ls, 0.15))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     gk.reset_launches()
@@ -294,3 +328,103 @@ def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
     path = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse",
             "logdet_q")
     assert min(gk.launches[k] for k in path) > 0, gk.launches
+
+
+def _cr_case(k, m, b, seed):
+    """tests/test_band.py:212-223's input at [k, m, b, b], assembled, with
+    block 2 of lane 1 negated (non-PD)."""
+    from spearmint_tpu_torch.ops import band
+
+    rng = np.random.RandomState(seed)
+    base = rng.randn(k, m, b, 2 * b).astype(np.float32)
+    d = np.matmul(base, np.swapaxes(base, -1, -2)) + 10 * np.eye(
+        b, dtype=np.float32)
+    s = (0.3 * rng.randn(k, m, b, b)).astype(np.float32)
+    s[:, -1] = 0.0
+    args = [torch.tensor(a, device="cuda") for a in (
+        d, s, rng.uniform(0.5, 1.5, k).astype(np.float32),
+        rng.uniform(0.01, 0.1, (k, m * b)).astype(np.float32))]
+    a, bb = band._cr_assemble(*args)
+    a[1, 2] = -a[1, 2]
+    r = torch.tensor(rng.randn(k, m * b).astype(np.float32), device="cuda")
+    return a, bb, r
+
+
+def _cr_f64(a, bb, r):
+    """float64 (ld, q) of the dense block-tridiagonal matrices."""
+    k, m, b, _ = a.shape
+    kd = torch.zeros(k, m * b, m * b, dtype=torch.float64, device=a.device)
+    for i in range(m):
+        kd[:, i*b:(i+1)*b, i*b:(i+1)*b] = a[:, i].double()
+        if i + 1 < m:
+            kd[:, (i+1)*b:(i+2)*b, i*b:(i+1)*b] = bb[:, i].double()
+            kd[:, i*b:(i+1)*b, (i+1)*b:(i+2)*b] = bb[:, i].double().mT
+    chol = torch.linalg.cholesky(kd)
+    w = torch.linalg.solve_triangular(chol, r.double()[..., None],
+                                      upper=False)[..., 0]
+    return (torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1),
+            (w * w).sum(-1))
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 16), (2, 64, 128)],
+                         ids=["small", "flagship_block"])
+def test_cyclic_reduction_matches_plain_version_and_f64(cuda, shape):
+    """B5 against its plain version and float64 (ld 1e-5, q 1e-4
+    relative), the non-PD lane NaN in its own ld and q only; inert
+    identity blocks padding m to 2m change nothing, bit for bit."""
+    from spearmint_tpu_torch.ops import band
+
+    a, bb, r = _cr_case(*shape, seed=shape[1])
+    band.reset_launches()
+    ld, q = band.cr_logdet_q(a, bb, r)
+    torch.cuda.synchronize()
+    assert band.launches["cr_logdet_q"] == 1
+    assert bool(torch.isnan(ld[1]) and torch.isnan(q[1]))
+    good = [i for i in range(shape[0]) if i != 1]
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    a, bb, r = (t[good].contiguous() for t in (a, bb, r))
+    o_ld, o_q = _cr_f64(a, bb, r)
+    for want_ld, want_q in ((p_ld[good], p_q[good]), (o_ld, o_q)):
+        assert _rel(ld[good], want_ld) < TOL["ld"]
+        assert _rel(q[good], want_q) < TOL["q"]
+    ld1, q1 = band.cr_logdet_q(a, bb, r)
+    k, m, b, _ = a.shape
+    eye = torch.eye(b, device="cuda").expand(k, m, b, b)
+    ld2, q2 = band.cr_logdet_q(torch.cat([a, eye], 1).contiguous(),
+                               torch.cat([bb, torch.zeros_like(bb)], 1),
+                               torch.cat([r, torch.zeros_like(r)], 1))
+    assert torch.equal(ld1, ld2) and torch.equal(q1, q2)
+
+
+def test_band_mode_suggest_step_launches_b5_and_b1(cuda):
+    """suggest_step(band_joint=True) at pad 2560 (n = 2100, nb = 20
+    blocks of 128, padded to 32 for cyclic reduction): the joint move's
+    evaluations launch B5, the ls move's B1; every sample is usable."""
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states, suggest_step,
+    )
+    from spearmint_tpu_torch.ops import band
+
+    gk = cuda
+    n, pad = 2100, 2560
+    rng = np.random.RandomState(3)
+    xp = np.zeros((pad, 2), np.float32); xp[:n] = rng.rand(n, 2)
+    yp = np.zeros(pad, np.float32)
+    yp[:n] = np.sin(3 * xp[:n, 0]) + 0.05 * rng.randn(n)
+    mask = np.arange(pad) < n
+    h = init_chain_states(torch.tensor(yp, device="cuda"),
+                          torch.tensor(mask, device="cuda"), 2, 4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gk.reset_launches()
+    band.reset_launches()
+    res = suggest_step(gen, h, xp, yp, mask, np.zeros((4, 2), np.float32),
+                       np.zeros(4, bool), rng.rand(256, 2).astype(np.float32),
+                       np.ones(256, bool),
+                       SuggestConfig(mcmc_iters=1, grid_subset=4,
+                                     lbfgs_iters=10, band_joint=True),
+                       device="cuda")
+    assert int(res.n_ok) == 4
+    assert bool(torch.isfinite(res.ei).all())
+    assert band.launches["cr_logdet_q"] > 0
+    assert gk.launches["shifted_logdet_q"] > 0

@@ -194,8 +194,12 @@ def test_sweep_carries_the_marginal():
                                    rtol=1e-6)
     h2 = sample_hypers(gen, h, xt, yt, mt, cfg)
     assert all(a.shape == b.shape for a, b in zip(h, h2))
-    with pytest.raises(NotImplementedError):
-        sample_hypers(gen, h, xt, yt, mt, MCMCConfig(band_joint=True))
+    # band mode runs (pad 32 in blocks of 8): one band reduction per joint
+    # move, each move seeding its own lp0
+    h3 = sample_hypers(gen, h, xt, yt, mt,
+                       MCMCConfig(band_joint=True, band_block=8))
+    assert all(a.shape == b.shape and bool(torch.isfinite(b).all())
+               for a, b in zip(h, h3))
 
 
 def test_posterior_moments_match_jax_and_golden():

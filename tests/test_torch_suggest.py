@@ -153,10 +153,10 @@ def test_no_quiet_fallback_to_the_cpu(tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter imports the port (the constrained engine, ESS
-    and the constrained chooser included), runs a tiny CPU suggestion and
-    a tiny CPU constrained suggestion, and has loaded no module of jax or
-    of spearmint_tpu."""
+    """A fresh interpreter imports the port (the constrained engine, ESS,
+    the constrained chooser and band mode included), runs a tiny CPU
+    suggestion, a tiny CPU constrained suggestion and a tiny CPU band-mode
+    suggestion, and has loaded no module of jax or of spearmint_tpu."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import spearmint_tpu_torch",
@@ -168,6 +168,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spearmint_tpu_torch.choosers.GPConstrainedEIChooser",
         "import spearmint_tpu_torch.convert",
         "import spearmint_tpu_torch.mcmc.ess",
+        "import spearmint_tpu_torch.ops.band",
         "rng = np.random.RandomState(0)",
         "x = np.zeros((16, 2), np.float32); x[:6] = rng.rand(6, 2)",
         "y = np.zeros(16, np.float32); y[:6] = rng.randn(6)",
@@ -187,6 +188,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                             lbfgs_iters=3, grid_subset=2),",
         "                             device='cpu')",
         "assert int(r.n_ok) > 0 and bool(torch.isfinite(r.acq).all())",
+        "xb = np.zeros((128, 2), np.float32); xb[:40] = rng.rand(40, 2)",
+        "yb = np.zeros(128, np.float32); yb[:40] = rng.randn(40)",
+        "mb = np.arange(128) < 40",
+        "hb = init_chain_states(torch.tensor(yb), torch.tensor(mb), 2, 2)",
+        "r = suggest_step(g, hb, xb, yb, mb, np.zeros((4, 2), np.float32),",
+        "                 np.zeros(4, bool), rng.rand(64, 2),",
+        "                 np.ones(64, bool), SuggestConfig(mcmc_iters=1,",
+        "                 lbfgs_iters=3, grid_subset=2, band_joint=True),",
+        "                 device='cpu')",
+        "assert int(r.n_ok) == 2 and bool(torch.isfinite(r.ei).all())",
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')",
         "       or k == 'spearmint_tpu' or k.startswith('spearmint_tpu.')]",
         "print('LOADED', bad)",
