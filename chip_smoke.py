@@ -15,14 +15,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               [10, 5248, 5248], the chooser's pad [12, 16, 16] with one
               non-PSD lane, and a ragged [3, 1000, 1000] with one non-PSD
               lane; B4a and B4b (the unshifted kernel, on K = M + diag(d)
-              assembled in float32) at [10, 5120, 5120], [12, 16, 16] and
-              [3, 1000, 1000] with the same non-PSD lanes; each held
+              assembled in float32) at the same four shapes with the same
+              non-PSD lanes; each held
               against its plain PyTorch version and a float64
               ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
               events) beside the plain version, the nearest PyTorch
-              library calls and the bound.  Then B1-B3 on the flagship's
-              own M-form and B4a on the constraint covariance's own form
-              (pad 5120, ls = 1, no noise term), against float64.  B5
+              library calls, the bound and the schedule's own
+              device-memory floor; B1 and B4a called twice on the same
+              input must give bit-identical ld and q.  Then B1-B3 on the
+              flagship's own M-form and B4a on the constraint
+              covariance's own form (pad 5120, ls = 1, no noise term),
+              against float64.  B5
               (cyclic reduction) at [10, 64, 128, 128] and [3, 8, 16, 16],
               each with a non-PD lane, against its plain version and
               float64 (ld 1e-5, q 1e-4 relative); then on the band
@@ -69,9 +72,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
  11. band_chooser  GPEIOptChooser(band_joint_min=2048, chains=10,
               mcmc_iters=10, burnin=5) at 2100 completions (pad 2560), one
               ``next``: an index or an (ei, x) tuple, band mode on, B5
-              launched and n_ok > 0.
+              launched and n_ok > 0;
+ 12. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
+              its device time by kernel name (trailing, diagonal, panel,
+              copy).
 
-Every line before the last three is one JSON record.  Then come the
+Every line before the last three is one JSON record, stamped with the
+seconds since the script began (``t_s``).  Then come the
 ``{"kernels": [...]}`` line (each kernel's launches on every path), the
 ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -87,6 +94,12 @@ result line:
                                              # band reduction, one lane
     python3 chip_smoke.py --small-pads       # chooser ``next`` at pads
                                              # 256 and 384, three routes
+    python3 chip_smoke.py --vs DIR[,DIR...] [--seeds 0,1,2]
+
+times the checkout's blocked Cholesky (``shifted_chol.cu``) against the
+one in each DIR, an earlier version or a variant of it, in turns; with
+``--seeds``, counts each build's slice evaluations and non-finite lanes
+on the flagship and constrained steps (``vs_builds``).
 """
 
 from __future__ import annotations
@@ -122,8 +135,13 @@ CONSTRAINED = dict(n=5000, d=2, chains=10, cands=2048, grid_subset=5,
                    lbfgs_iters=10, p_invalid=0.25)
 
 
+T_START = time.perf_counter()
+
+
 def emit(rec: dict) -> None:
-    print(json.dumps(rec), flush=True)
+    """Print one record, stamped with the seconds since the script began."""
+    print(json.dumps({**rec, "t_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -591,6 +609,101 @@ def check_b5(torch):
     return rec
 
 
+def schedule_bytes(k, n, panel, tile):
+    """Bytes that spm_shifted_chol's schedule moves through device memory
+    at [k, n, n] when every launch reads and writes its own tiles once
+    (operands that later tiles of the same launch read again are taken to
+    hit L2): the copy of M (read and written), per tile step the diagonal
+    tile (read; L and L⁻¹ written) and the panel below (read and written),
+    in a panel wider than the tile its next columns (read and written),
+    and per panel the lower trailing tiles (read and written)."""
+    floats = 2 * n * n
+    for k0 in range(0, n, panel):
+        k1 = min(k0 + panel, n)
+        for s0 in range(k0, k1, tile):
+            s1 = min(s0 + tile, n)
+            floats += 3 * tile * tile + 2 * (n - s1) * tile
+            if s1 < k1:
+                floats += 2 * (n - s1) * tile
+        m = -(-(n - k1) // tile)
+        floats += 2 * m * (m + 1) // 2 * tile * tile
+    return 4.0 * k * floats
+
+
+def trailing_flop(k, n, panel, tile):
+    """Flops of the trailing launches as scheduled: every tile of each
+    update is a full tile x tile x depth product (2 flops an FMA), and in
+    a panel wider than the tile the next columns' updates at depth tile."""
+    flop = 0
+    for k0 in range(0, n, panel):
+        k1 = min(k0 + panel, n)
+        for s0 in range(k0, k1 - tile, tile):
+            flop += -(-(n - s0 - tile) // tile) * tile ** 3
+        m = -(-(n - k1) // tile)
+        flop += m * (m + 1) // 2 * tile * tile * (k1 - k0)
+    return 2.0 * k * flop
+
+
+def device_ms_by_kernel(torch, fn):
+    """Device milliseconds of one call of ``fn`` by kernel name (template
+    arguments dropped), and the count of each; ``ProfilerStep*`` is the
+    recorded call's span, not a kernel.  The profiler records the second
+    of two calls: a session's first events can be lost when earlier
+    sessions ran in the process, so the first call is its warm-up step."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    ms, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            hit = re.search(r"(\w+_kernel)", e.name)
+            name = hit.group(1) if hit else e.name.split(" (")[0]
+            ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[name] = count.get(name, 0) + 1
+    return {k: [v, count[k]] for k, v in sorted(ms.items(),
+                                                key=lambda kv: -kv[1])}
+
+
+def b1_split(torch, gk, rec):
+    """One B1 call at [10, 5120, 5120] under ``torch.profiler``, its device
+    time by kernel name beside the call's time and bound from ``rec`` (the
+    kernel_times record), the schedule's own device-memory floor and the
+    trailing launches' flops.  Run after the paths, so that none of their
+    timed reps follows a first profiler session."""
+    k, n = FLAGSHIP["chains"], 5120
+    m, d, r = well_conditioned(torch, k, n, seed=0)
+    emit({"phase": "b1_split", "shape": [k, n, n],
+          "panel": gk.CHOL_PANEL, "tile": gk.CHOL_TILE,
+          "device_ms_count": device_ms_by_kernel(
+              torch, lambda: gk.shifted_logdet_q(m, d, r)),
+          "ms": rec["ms"], "bound_ms": rec["bound_ms"],
+          "schedule_bytes_ms": 1e3 * schedule_bytes(
+              k, n, gk.CHOL_PANEL, gk.CHOL_TILE) / PEAK_BYTES,
+          "trailing_flop": trailing_flop(k, n, gk.CHOL_PANEL, gk.CHOL_TILE)})
+
+
+def check_reproducible(torch, gk, m, d, r, kmat):
+    """B1 and B4a twice on the same input: ld and q bit for bit equal."""
+    same = {}
+    for name, fn in (("B1", lambda: gk.shifted_logdet_q(m, d, r)),
+                     ("B4a", lambda: gk.logdet_q(kmat, r))):
+        (ld1, q1), (ld2, q2) = fn(), fn()
+        same[name] = bool(torch.equal(ld1, ld2) and torch.equal(q1, q2))
+    emit({"phase": "kernels", "case": "bitwise_reproducible",
+          "shape": list(m.shape), "equal": same})
+    if not all(same.values()):
+        fail(f"ld and q differ between two calls: {same}")
+
+
 def check_kernels(torch, gk):
     """B1-B3 against plain versions and float64 at every shape the main
     paths give them, and timed at the flagship shape; returns per-kernel
@@ -609,8 +722,7 @@ def check_kernels(torch, gk):
             ("chooser_pad_nan_lane", 12, 16, 3, 5),
             ("ragged_nan_lane", 3, 1000, 1, 0)):
         hold_case(torch, gk, case, k, n, seed, nan_lane)
-        if n != 5248:   # B4 runs at the constraint pads only
-            hold_case_b4(torch, gk, case, k, n, seed, nan_lane)
+        hold_case_b4(torch, gk, case, k, n, seed, nan_lane)
 
     # timing at the flagship shape: kernel, plain version, library calls
     n, k = 5120, 10
@@ -661,11 +773,17 @@ def check_kernels(torch, gk):
                 cuda_ms(torch, lambda: gk.factor_logdet_q_ref(kmat, r), 1),
                 cuda_ms(torch, lib_factor_k, 3), bound(bytes_b4b)),
     }
+    sched_ms = 1e3 * schedule_bytes(k, n, gk.CHOL_PANEL,
+                                    gk.CHOL_TILE) / PEAK_BYTES
     for name, (ms, plain_ms, lib_ms, (bnd, by)) in t.items():
         records[name] = dict(max_abs_err=max_abs[name], ms=ms,
                              plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                              library_ms=lib_ms)
-    emit({"phase": "kernel_times", "shape": [k, n, n], "times": records})
+    # the schedule's floor is computed, not measured: it stays out of the
+    # records that go into the kernels line
+    emit({"phase": "kernel_times", "shape": [k, n, n], "times": records,
+          "schedule_bytes_ms_B1_to_B4b": sched_ms})
+    check_reproducible(torch, gk, m, d, r, kmat)
     del m, d, r, l2, eye, kmat
 
     # (b) the flagship's own M-form (cond ≈ 1e6): held at the level the
@@ -1301,6 +1419,165 @@ def small_pad_times(torch):
                   "pad": linalg.pad_bucket(n), "route": route, "runs": runs})
 
 
+# --------------------------------------------------------------- --vs
+def build_shifted_chol(srcs):
+    """{label: source dir} -> {label: library}: each dir's
+    ``shifted_chol.cu`` (beside its ``tile_ops.cuh``) built with the
+    package's flags and ``-Xptxas -v``, one ``nvcc`` each, all at once;
+    prints each build's ptxas report (registers, stack, spills)."""
+    import ctypes
+
+    from spearmint_tpu_torch.ops import build
+
+    out = os.path.join(build.BUILD_ROOT, "vs")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for label, src in srcs.items():
+        path = os.path.join(out, f"lib{label}.so")
+        procs[label] = (path, subprocess.Popen(
+            [build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-o", path,
+             os.path.join(src, "shifted_chol.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for {label}:\n{log}")
+        emit({"phase": "vs_ptxas", "build": label, "source": srcs[label],
+              "log": [ln.strip() for ln in log.splitlines() if ln.strip()]})
+        lib = ctypes.CDLL(path)
+        lib.spm_shifted_chol.argtypes = \
+            build.SOURCES["shifted_chol"]["spm_shifted_chol"]
+        lib.spm_shifted_chol.restype = ctypes.c_int
+        libs[label] = lib
+    return libs
+
+
+def vs_builds(torch, gk, dirs, seeds):
+    """``--vs DIR[,DIR...] [--seeds S,...]``: the checkout's
+    ``shifted_chol.cu`` against the one in each DIR (an earlier version of
+    the kernel, or a variant of it), every build loaded in turn in place of
+    the package's.  B1, B2, B4a and B4b timed in turns (a, b, b, a) at
+    [10, 5120, 5120], [10, 5248, 5248] and [3, 1000, 1000], each build's
+    ld and q (and L) held to the checkout's; one B1 call of each build
+    split by kernel name.  With ``--seeds``, per seed and per build (in
+    turns): two flagship and two constrained suggestions from the initial
+    chain states, each step's B1 and B4a launches (the slice evaluations),
+    the lanes whose ld or q came back non-finite, and B4a's lp against a
+    float64 factorization of the same matrix (nats, over finite lanes)."""
+    from spearmint_tpu_torch.engine.constrained import (
+        ConstraintState, suggest_step_constrained,
+    )
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states, suggest_step,
+    )
+    from spearmint_tpu_torch.ops import build
+
+    srcs = {"checkout": build.CSRC,
+            **{os.path.basename(os.path.normpath(p)): os.path.abspath(p)
+               for p in dirs}}
+    libs = build_shifted_chol(srcs)
+    names = list(libs)
+    order = names + names[::-1]
+
+    def use(label):
+        build._loaded["shifted_chol"] = libs[label]
+
+    calls = {"B1": lambda m, d, r, km: gk.shifted_logdet_q(m, d, r),
+             "B2": lambda m, d, r, km: gk.shifted_factor_logdet_q(m, d, r),
+             "B4a": lambda m, d, r, km: gk.logdet_q(km, r),
+             "B4b": lambda m, d, r, km: gk.factor_logdet_q(km, r)}
+    for k, n in ((10, 5120), (10, 5248), (3, 1000)):
+        m, d, r = well_conditioned(torch, k, n, seed=0)
+        km = (m + torch.diag_embed(d)).contiguous()
+        for kname, fn in calls.items():
+            ms, outs = {v: [] for v in names}, {}
+            for v in order:
+                use(v)
+                outs[v] = fn(m, d, r, km)
+                ms[v].append(cuda_ms(torch, lambda: fn(m, d, r, km), 3))
+            ref = outs[names[0]]
+            agree = {v: {"ld_rel": rel(outs[v][0], ref[0]),
+                         "q_rel": rel(outs[v][1], ref[1]),
+                         **({"L_abs": absmax(outs[v][2], ref[2])}
+                            if len(ref) == 4 else {})}
+                     for v in names[1:]}
+            emit({"phase": "vs_turns", "kernel": kname, "shape": [k, n, n],
+                  "order": order, "ms": ms,
+                  "ms_mean": {v: float(np.mean(t)) for v, t in ms.items()},
+                  "agree_with_checkout": agree})
+        if n == 5120:
+            for v in names:
+                use(v)
+                emit({"phase": "vs_b1_split", "build": v, "shape": [k, n, n],
+                      "device_ms_count": device_ms_by_kernel(
+                          torch, lambda: gk.shifted_logdet_q(m, d, r))})
+        del m, d, r, km, outs
+        torch.cuda.empty_cache()
+
+    if not seeds:
+        return
+    plain_call, nonfinite, lp_err = gk._shifted_chol, [0], []
+
+    def counted(m0, dshift, resid, emit):
+        out = plain_call(m0, dshift, resid, emit)
+        nonfinite[0] += int((~(torch.isfinite(out[0])
+                               & torch.isfinite(out[1]))).sum())
+        if dshift is None:   # B4a: its lp against float64, same matrix
+            ld, q = oracle_factor(torch, m0, torch.zeros_like(resid),
+                                  resid)[:2]
+            err = (lp_of(out[0], out[1]).double() - lp_of(ld, q)).abs()
+            lp_err.extend(err[torch.isfinite(err)].tolist())
+        return out
+
+    gk._shifted_chol = counted
+    f, c = FLAGSHIP, CONSTRAINED
+    f_args = padded_problem(torch, f["n"], f["d"], f["cands"])
+    f_cfg = SuggestConfig(mcmc_iters=1, grid_subset=10, lbfgs_iters=20)
+    c_args = constrained_problem()
+    c_cfg = SuggestConfig(mcmc_iters=1, grid_subset=c["grid_subset"],
+                          lbfgs_iters=c["lbfgs_iters"])
+    chains, pad = c["chains"], len(c_args[1])
+    for i, seed in enumerate(seeds):
+        for v in (names if i % 2 == 0 else names[::-1]):
+            use(v)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            steps = []
+            hypers = init_chain_states(
+                torch.tensor(f_args[1], device="cuda"),
+                torch.tensor(f_args[2], device="cuda"), f["d"], f["chains"])
+            for _ in range(2):
+                reset_launches()
+                nonfinite[0] = 0
+                res = suggest_step(gen, hypers, *f_args, f_cfg,
+                                   device="cuda")
+                hypers = res.hypers
+                steps.append({"path": "flagship", "n_ok": int(res.n_ok),
+                              **launch_counts(), "nonfinite": nonfinite[0]})
+            hypers = init_chain_states(
+                torch.tensor(c_args[1], device="cuda"),
+                torch.tensor(c_args[2], device="cuda"), c["d"], chains)
+            cons = ConstraintState(torch.ones(chains, c["d"], device="cuda"),
+                                   torch.ones(chains, device="cuda"),
+                                   torch.zeros(chains, pad, device="cuda"))
+            for _ in range(2):
+                reset_launches()
+                nonfinite[0] = 0
+                lp_err.clear()
+                res = suggest_step_constrained(gen, hypers, cons, *c_args,
+                                               c_cfg, device="cuda")
+                hypers, cons = res.hypers, res.constraint
+                steps.append({"path": "constrained", "n_ok": int(res.n_ok),
+                              **launch_counts(), "nonfinite": nonfinite[0],
+                              "b4a_lp_err_f64_max": max(lp_err, default=0.0),
+                              "b4a_lp_err_f64_median": float(
+                                  np.median(lp_err)) if lp_err else 0.0})
+            emit({"phase": "vs_paths", "build": v, "seed": seed,
+                  "steps": steps})
+    gk._shifted_chol = plain_call
+
+
 # --------------------------------------------------------------- phase 8
 def branin_unit(u):
     x = 15.0 * u[0] - 5.0
@@ -1457,6 +1734,11 @@ def main(argv) -> int:
     if argv[:1] == ["--small-pads"]:
         small_pad_times(torch)
         return 0
+    if argv[:1] == ["--vs"]:
+        seeds = ([int(s) for s in argv[3].split(",")]
+                 if argv[2:3] == ["--seeds"] else [])
+        vs_builds(torch, gk, argv[1].split(","), seeds)
+        return 0
 
     records = check_kernels(torch, gk)
     emit({"phase": "clocks_after_kernels",
@@ -1480,6 +1762,7 @@ def main(argv) -> int:
              "constrained_chooser": run_constrained_chooser(
                  torch)["launches"],
              "band_chooser": run_band_chooser()["launches"]}
+    b1_split(torch, gk, records["B1"])
 
     src = "spearmint_tpu_torch/ops/csrc/"
     pallas = "spearmint_tpu/ops/pallas_gp.py:"

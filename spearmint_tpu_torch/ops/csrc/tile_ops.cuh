@@ -1,6 +1,7 @@
-// Shared building blocks of the Cholesky-family kernels (shifted_chol.cu,
-// tri_inverse.cu): the panel width, the 64x64 tile inversion in shared
-// memory, and a deterministic block reduction.
+// Shared building blocks of the Cholesky-family kernels: the block size
+// and a deterministic block reduction (shifted_chol.cu, tri_inverse.cu),
+// and tri_inverse.cu's tile width and 64x64 tile inversion in shared
+// memory (shifted_chol.cu has its own tile, CHOL_TILE).
 //
 // Every tile is PANEL x PANEL floats, stored with one float of row
 // padding (PANEL + 1) where it is walked column-wise, and PANEL + 4 where

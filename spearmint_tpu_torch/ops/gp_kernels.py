@@ -14,11 +14,12 @@ or without the diagonal shift and the emitted factor, as they are one
 Pallas body; B3 is ``csrc/tri_inverse.cu``.  Each wrapper launches its
 CUDA kernel for a CUDA tensor, and runs the plain PyTorch version beside
 it (``*_ref``) only for a tensor on the CPU.  The plain versions follow
-the kernels' own blocked schedule — PANEL-wide panels, an unblocked column
-sweep on the diagonal tile with the pivot taken as d2·rsqrt(d2), a
-forward-substitution tile inverse, the ragged last panel — so the CPU
-tests exercise the tiling, the ragged edge and the padded rows that the
-card runs.
+the kernels' own blocked schedules, so the CPU tests exercise the tiling,
+the ragged edge and the padded rows that the card runs: B1-B4b over
+CHOL_PANEL-wide panels with a CHOL_TILE-wide diagonal tile, factored by
+CHOL_SUB-column sub-blocks (pivot d2·rsqrt(d2), each sub-block inverted
+beside its factor) and inverted by 2×2 block recursion, the ragged last
+tile; B3 over PANEL-wide tiles with a forward-substitution tile inverse.
 
 Inputs and outputs are float32 and contiguous.  B1/B2 take M [K, N, N],
 dshift [K, N], r [K, N] and factor M + diag(dshift); B4a/B4b take an
@@ -34,8 +35,15 @@ import ctypes
 
 import torch
 
-# Panel width of the blocked schedule; must equal PANEL in csrc/tile_ops.cuh.
+# Tile width of B3's schedule (tri_inverse_ref); must equal PANEL in
+# csrc/tile_ops.cuh.
 PANEL = 64
+# The Cholesky schedule of B1-B4b: panel width (the depth of each trailing
+# update), diagonal-tile width and its sub-block width; each must equal the
+# constant of the same name in csrc/shifted_chol.cu.
+CHOL_PANEL = 256
+CHOL_TILE = 128
+CHOL_SUB = 32
 
 launches = {"shifted_logdet_q": 0, "shifted_factor_logdet_q": 0,
             "logdet_q": 0, "factor_logdet_q": 0, "tri_inverse": 0}
@@ -75,32 +83,114 @@ def _invert_tile(l: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _sub_factor(a: torch.Tensor):
+    """[K, s, s], s ≤ CHOL_SUB (lower triangle read): one warp's work on a
+    diagonal sub-block.  L by s column steps (pivot d2·rsqrt(d2): a non-PD
+    lane is NaN, never ±inf), then Y = L⁻¹ row by row with the pivots'
+    rsqrt(d2) as its diagonal: Y[r] = (e_r − L[r, :r] Y[:r]) · rsqrt(d2_r).
+    Each step is a few whole-batch operations (the CPU tests and the card
+    both pay per operation)."""
+    a = torch.tril(a)
+    s = a.shape[-1]
+    inv = torch.empty(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for j in range(s):
+        torch.rsqrt(a[:, j, j], out=inv[:, j])
+        col = a[:, j:, j] * inv[:, j, None]      # col[0] = d2·rsqrt(d2)
+        a[:, j:, j] = col
+        a[:, j + 1:, j + 1:].baddbmm_(col[:, 1:, None], col[:, None, 1:],
+                                      alpha=-1.0)
+    a = torch.tril(a)
+    y = torch.zeros_like(a)
+    eye = torch.eye(s, dtype=a.dtype, device=a.device)
+    for r in range(s):
+        e_r = eye[r].expand(a.shape[0], 1, s)
+        t = torch.baddbmm(e_r, a[:, r:r + 1, :r], y[:, :r, :], alpha=-1.0)
+        torch.mul(t[:, 0], inv[:, r, None], out=y[:, r, :])
+    return a, y
+
+
+def _tile_factor(a: torch.Tensor):
+    """(L, L⁻¹) of a [K, b, b] diagonal tile (lower triangle read), as
+    ``diag_kernel`` computes them at b = CHOL_TILE: right-looking over
+    CHOL_SUB columns (sub-block factor and inverse, the rows below as a
+    product with that inverse, the rest updated), then L⁻¹'s off-diagonal
+    blocks by 2×2 block recursion, X_BA = −X_BB (L_BA X_AA), pairs first."""
+    a = torch.tril(a)
+    b = a.shape[-1]
+    x = torch.zeros_like(a)
+    for c0 in range(0, b, CHOL_SUB):
+        c1 = min(c0 + CHOL_SUB, b)
+        l, y = _sub_factor(a[:, c0:c1, c0:c1])
+        a[:, c0:c1, c0:c1] = l
+        x[:, c0:c1, c0:c1] = y
+        if c1 < b:
+            lr = a[:, c1:, c0:c1] @ y.mT
+            a[:, c1:, c0:c1] = lr
+            a[:, c1:, c1:].baddbmm_(lr, lr.mT, alpha=-1.0)
+    a = torch.tril(a)
+    w = CHOL_SUB
+    while w < b:
+        for lo in range(0, b - w, 2 * w):
+            mid, hi = lo + w, min(lo + 2 * w, b)
+            t = a[:, mid:hi, lo:mid] @ x[:, lo:mid, lo:mid]
+            x[:, mid:hi, lo:mid] = -(x[:, mid:hi, mid:hi] @ t)
+        w *= 2
+    return a, x
+
+
+def _tile_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a bᵀ for [K, M, D] and [K, N, D] on whole CHOL_TILE-row tiles, rows
+    past M and N zero-filled as the kernels' copies fill them, so a row's
+    sums do not depend on how many rows sit beside it (a CPU library picks
+    its summation order by shape)."""
+    m, n = a.shape[-2], b.shape[-2]
+    a = torch.nn.functional.pad(a, (0, 0, 0, -m % CHOL_TILE))
+    b = torch.nn.functional.pad(b, (0, 0, 0, -n % CHOL_TILE))
+    return (a @ b.mT)[..., :m, :n]
+
+
 def _factor_ref(m0, dshift, resid):
     """The blocked schedule of B1/B2 (dshift [K, N]) and B4a/B4b (dshift
-    None: the diagonal tiles are factored as they are)."""
+    None: the diagonal tiles are factored as they are): per CHOL_TILE
+    step the diagonal tile (a ragged last one padded with identity, as in
+    shared memory), the panel below (L_ik = A_ik L_kk⁻ᵀ, w_i −= L_ik w_k)
+    and, in a panel wider than the tile, the panel's remaining columns;
+    per CHOL_PANEL step the trailing update."""
     k_batch, n, _ = m0.shape
     a = m0.clone()
     w = resid.clone()
     ld = torch.zeros(k_batch, dtype=m0.dtype, device=m0.device)
     q = torch.zeros_like(ld)
-    for k0 in range(0, n, PANEL):
-        k1 = min(k0 + PANEL, n)
-        tile = a[:, k0:k1, k0:k1]
-        if dshift is not None:
-            tile = tile + torch.diag_embed(dshift[:, k0:k1])
-        l = column_cholesky(tile)
-        x = _invert_tile(l)
-        wk = (x @ w[:, k0:k1, None])[..., 0]
-        w[:, k0:k1] = wk
-        ld += torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
-        q += (wk * wk).sum(-1)
-        a[:, k0:k1, k0:k1] = l
+    eye = torch.eye(CHOL_TILE, dtype=m0.dtype, device=m0.device)
+    for k0 in range(0, n, CHOL_PANEL):
+        k1 = min(k0 + CHOL_PANEL, n)
+        for s0 in range(k0, k1, CHOL_TILE):
+            s1 = min(s0 + CHOL_TILE, n)
+            b = s1 - s0
+            tile = eye.repeat(k_batch, 1, 1)
+            tile[:, :b, :b] = a[:, s0:s1, s0:s1]
+            if dshift is not None:
+                tile[:, :b, :b] += torch.diag_embed(dshift[:, s0:s1])
+            l, x = _tile_factor(tile)
+            wk = torch.zeros(k_batch, CHOL_TILE, dtype=m0.dtype,
+                             device=m0.device)
+            wk[:, :b] = w[:, s0:s1]
+            wk = (x @ wk[..., None])[:, :b, 0]
+            l, x = l[:, :b, :b], x[:, :b, :b]
+            w[:, s0:s1] = wk
+            ld += torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+            q += (wk * wk).sum(-1)
+            a[:, s0:s1, s0:s1] = l
+            if s1 < n:
+                lp = _tile_mm(a[:, s1:, s0:s1], x)
+                a[:, s1:, s0:s1] = lp
+                a[:, s0:s1, s1:] = 0.0
+                w[:, s1:] -= (lp @ wk[..., None])[..., 0]
+                if s1 < k1:
+                    a[:, s1:, s1:k1] -= _tile_mm(lp, lp[:, :k1 - s1])
         if k1 < n:
-            lp = a[:, k1:, k0:k1] @ x.mT           # L_ik = A_ik L_kk^{-T}
-            a[:, k1:, k0:k1] = lp
-            a[:, k0:k1, k1:] = 0.0
-            w[:, k1:] -= (lp @ wk[..., None])[..., 0]
-            a[:, k1:, k1:] -= lp @ lp.mT
+            lp = a[:, k1:, k0:k1]
+            a[:, k1:, k1:] -= _tile_mm(lp, lp)
     return ld, q, a, w
 
 
@@ -197,7 +287,7 @@ def _shifted_chol(m0, dshift, resid, emit):
     k_batch, n, _ = m0.shape
     ws = torch.empty_like(m0)
     w = torch.empty_like(resid)
-    linv = torch.empty((k_batch, PANEL, PANEL), dtype=m0.dtype,
+    linv = torch.empty((k_batch, CHOL_TILE, CHOL_TILE), dtype=m0.dtype,
                        device=m0.device)
     ld = torch.empty(k_batch, dtype=m0.dtype, device=m0.device)
     q = torch.empty_like(ld)

@@ -7,7 +7,9 @@ K = M + diag(d) assembled in float32, the matrix B1/B2 factor through the
 shift, and parametrise the shared tests over the two forms.  On a CPU
 tensor each
 wrapper runs its plain PyTorch version, which follows the CUDA kernel's
-blocked schedule (64-wide panels, ragged last panel).  Here those run
+blocked schedule (256-wide panels, CHOL_PANEL, factored by 128-wide
+tiles, the diagonal tile by 32-column sub-blocks, ragged last tile).  Here
+those run
 against the Pallas kernels in interpret mode at ``block=128, sub=32`` —
 as ``tests/test_pallas_gp.py`` runs them — and against float64 numpy.
 Tolerances are the Pallas tests' own: ld 2e-4, q 2e-3, L 2e-4, X 3e-4.
@@ -86,8 +88,8 @@ def _logdet(form, m, d, r):
     return gk.logdet_q(*_t(_assemble(m, d), r))
 
 
-@pytest.fixture(scope="module", params=[(256, 0), (384, 37)],
-                ids=["n256", "n384_pad37"])
+@pytest.fixture(scope="module", params=[(256, 0), (384, 37), (512, 45)],
+                ids=["n256", "n384_pad37", "n512_pad45"])
 def pallas_case(request):
     """One Pallas B1, B2, B3, B4a and B4b run per shape, shared by the
     tests."""
@@ -207,7 +209,8 @@ def test_nan_lane_is_isolated(form):
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("n_real,n", [(100, 160), (64, 136), (37, 40)])
+@pytest.mark.parametrize("n_real,n", [(100, 160), (64, 136), (37, 40),
+                                       (130, 256), (100, 288)])
 def test_padded_rows_are_inert(n_real, n, form):
     """Rows with M = 0, shift 1 and r = 0 (identity rows of the assembled
     K) factor to identity rows: ld, q of the unpadded problem (1e-6
@@ -237,7 +240,8 @@ def test_padded_rows_are_inert(n_real, n, form):
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("n", [16, 20, 28, 56, 64, 65, 100, 136, 200])
+@pytest.mark.parametrize("n", [16, 20, 28, 56, 64, 65, 100, 136, 200, 127,
+                               128, 129, 160, 257])
 def test_every_small_pad_factors(n, form):
     """Every ragged width the port produces goes through the same blocked
     schedule: against float64 at 1e-5 (ld) and 1e-4 (q, L, X)."""

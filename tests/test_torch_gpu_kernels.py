@@ -15,11 +15,13 @@ K = M + diag(d) assembled in float32, and B5 ``cr_logdet_q``, cyclic
 reduction, at [3, 8, 16, 16] and [2, 64, 128, 128]) is held against its
 plain PyTorch version on the same card and against a float64 oracle,
 at a ragged width, at the production pad 1024 (the pad of
-``tests/test_tpu_smoke.py``) and at the pending flagship's augmented pad
-5248.  Inputs are M = F Fᵀ/8 (rank 8)
-plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors stay near
-n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4 absolute (entries
-O(1)), w 5e-4 of its largest entry, X 5e-4 absolute (entries up to ~3).
+``tests/test_tpu_smoke.py``), at the pending flagship's augmented pad
+5248 and at [2, 1152, 1152] with a ragged real block; B1 and B4a must
+give bit-identical ld and q from call to call.  Inputs are M = F Fᵀ/8
+(rank 8) plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors
+stay near n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4
+absolute (entries O(1)), w 5e-4 of its largest entry, X 5e-4 absolute
+(entries up to ~3).
 """
 
 import numpy as np
@@ -68,8 +70,10 @@ def _abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.parametrize("k_batch,n", [(3, 1000), (2, 1024), (2, 5248)],
-                         ids=["ragged1000", "pad1024", "pad5248"])
+@pytest.mark.parametrize("k_batch,n", [(3, 1000), (2, 1024), (2, 5248),
+                                       (2, 1001)],
+                         ids=["ragged1000", "pad1024", "pad5248",
+                              "rows_not_float4_aligned1001"])
 def test_kernels_match_plain_version_and_f64(cuda, k_batch, n):
     gk = cuda
     m, d, r = _case(k_batch, n, seed=n)
@@ -109,6 +113,51 @@ def test_kernels_match_plain_version_and_f64(cuda, k_batch, n):
         assert _abs(l5, want_l) < TOL["L"]
         assert _abs(w5, want_w) / float(want_w.abs().max()) < TOL["w"]
     assert float(torch.triu(l5, 1).abs().max()) == 0.0
+
+
+def test_nine_panels_with_a_ragged_real_block(cuda):
+    """[2, 1152, 1152]: nine 128-wide tiles (four and a half panels of the
+    schedule) with 1000 real rows and 152 padded ones (M = 0, shift 1,
+    r = 0) across the last two tiles, against the plain version and
+    float64 of the real block at the file's tolerances."""
+    gk = cuda
+    n, n_real = 1152, 1000
+    m, d, r = _case(2, n, seed=11)
+    real = torch.arange(n, device="cuda") < n_real
+    m = torch.where(real[:, None] & real[None, :], m, 0.0).contiguous()
+    d = torch.where(real, d, 1.0).contiguous()
+    r = torch.where(real, r, 0.0).contiguous()
+    ld1, q1 = gk.shifted_logdet_q(m, d, r)
+    ld2, q2, lmat, w = gk.shifted_factor_logdet_q(m, d, r)
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    ld4, q4 = gk.logdet_q(kmat, r)
+    torch.cuda.synchronize()
+    p_ld, p_q, p_l, p_w = gk.shifted_factor_logdet_q_ref(m, d, r)
+    s = slice(0, n_real)
+    o_ld, o_q, o_l, o_w = _oracle(m[:, s, s], d[:, s], r[:, s])
+    for ld, q in ((ld1, q1), (ld2, q2), (ld4, q4)):
+        for want_ld, want_q in ((p_ld, p_q), (o_ld, o_q)):
+            assert _rel(ld, want_ld) < TOL["ld"]
+            assert _rel(q, want_q) < TOL["q"]
+    assert _abs(lmat, p_l) < TOL["L"]
+    assert _abs(w, p_w) / float(p_w.abs().max()) < TOL["w"]
+    assert _abs(lmat[:, s, s], o_l) < TOL["L"]
+    assert _abs(w[:, s], o_w) / float(o_w.abs().max()) < TOL["w"]
+    assert float(torch.triu(lmat, 1).abs().max()) == 0.0
+    assert torch.equal(lmat[:, n_real:, n_real:],
+                       torch.eye(n - n_real, device="cuda").expand(2, -1, -1))
+
+
+def test_ld_and_q_are_bitwise_reproducible(cuda):
+    """Two calls of B1 and of B4a on the same input give bit-identical ld
+    and q: every sum runs in a fixed order, with no atomics."""
+    gk = cuda
+    m, d, r = _case(3, 1024, seed=12)
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    for fn in (lambda: gk.shifted_logdet_q(m, d, r),
+               lambda: gk.logdet_q(kmat, r)):
+        (ld1, q1), (ld2, q2) = fn(), fn()
+        assert torch.equal(ld1, ld2) and torch.equal(q1, q2)
 
 
 def test_non_psd_lane_gives_nan_in_its_own_lane_only(cuda):
