@@ -16,7 +16,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               non-PSD lane, and a ragged [3, 1000, 1000] with one non-PSD
               lane; B4a and B4b (the unshifted kernel, on K = M + diag(d)
               assembled in float32) at the same four shapes with the same
-              non-PSD lanes; each held
+              non-PSD lanes, and all five at [2, 640, 640] (five tiles:
+              B3's recursion pairs four tiles with one); each held
               against its plain PyTorch version and a float64
               ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
               events) beside the plain version, the nearest PyTorch
@@ -26,11 +27,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               flagship's own M-form and B4a on the constraint
               covariance's own form (pad 5120, ls = 1, no noise term),
               against float64.  B5
-              (cyclic reduction) at [10, 64, 128, 128] and [3, 8, 16, 16],
-              each with a non-PD lane, against its plain version and
-              float64 (ld 1e-5, q 1e-4 relative); then on the band
-              flagship's own blocks (the reduction of the flagship's M,
-              40 blocks of 128 padded to 64), timed beside its plain
+              (cyclic reduction) at [10, 64, 128, 128], [3, 8, 16, 16]
+              and, with the band chooser's layout (20 real blocks of 128
+              padded to 32 with inert ones, ``n_real=20``),
+              [10, 32, 128, 128], each with a non-PD lane, against its
+              plain version and float64 (ld 1e-5, q 1e-4 relative); then
+              on the band flagship's own blocks (the reduction of the
+              flagship's M, 40 blocks of 128 padded to 64, ``n_real=40``
+              as the band factory passes it), timed beside its plain
               version, the bound, the dense library Cholesky + solve of
               the same [10, 5120, 5120] matrix, the band scan
               (``band_logdet_q``) and the reduction itself;
@@ -96,10 +100,16 @@ result line:
                                              # 256 and 384, three routes
     python3 chip_smoke.py --vs DIR[,DIR...] [--seeds 0,1,2]
 
-times the checkout's blocked Cholesky (``shifted_chol.cu``) against the
-one in each DIR, an earlier version or a variant of it, in turns; with
-``--seeds``, counts each build's slice evaluations and non-finite lanes
-on the flagship and constrained steps (``vs_builds``).
+builds the checkout's kernel sources and those in each DIR (an earlier
+tree's ``ops/csrc``, or a variant), one ``nvcc`` each with ``-Xptxas -v``,
+and times them in turns (a-b-b-a): B1, B2, B4a and B4b, each build's ld,
+q, L and w held to the checkout's bit for bit; B3 at [10, 5120, 5120] and
+[10, 5248, 5248]; B5 at [10, 64, 128, 128] (the band flagship's blocks,
+40 real) and [10, 32, 128, 128] (20 real), each build of B5 with what its
+C entry takes (the checkout's skips the inert blocks); one call of each
+kernel and build split by kernel name.  With ``--seeds``, counts each
+build's slice evaluations and non-finite lanes on the flagship and
+constrained steps (``vs_builds``).
 """
 
 from __future__ import annotations
@@ -130,6 +140,7 @@ FLAGSHIP_PATH = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
 # problem: 2100 completions pad to 2560 = 20 blocks, 32 for cyclic reduction
 BAND_BLOCK = 128
 BAND_CHOOSER = dict(n=2100, d=2, cands=1000)
+BAND_CHOOSER_BLOCKS = 20
 # bench.py PRESETS["constrained"], as time_tpu_constrained sets it up
 CONSTRAINED = dict(n=5000, d=2, chains=10, cands=2048, grid_subset=5,
                    lbfgs_iters=10, p_invalid=0.25)
@@ -413,9 +424,11 @@ def constraint_form_case(torch, gk):
 B5_TOL = {"ld_rel": 1e-5, "q_rel": 1e-4}
 
 
-def cr_synthetic(torch, k, m, b, seed, nan_lane=None):
+def cr_synthetic(torch, k, m, b, seed, nan_lane=None, n_real=None):
     """tests/test_band.py:212-220's input at [k, m, b, b], assembled on the
-    card, with block 2 of ``nan_lane`` negated (non-PD)."""
+    card, with block 2 of ``nan_lane`` negated (non-PD); with ``n_real``,
+    the blocks from n_real on inert padding (a = I, bb = 0, r = 0, and the
+    coupling into the first of them 0), as the band factory pads."""
     from spearmint_tpu_torch.ops import band
 
     rng = np.random.RandomState(seed)
@@ -434,6 +447,10 @@ def cr_synthetic(torch, k, m, b, seed, nan_lane=None):
     a, bb = band._cr_assemble(d, s, amp2, dadd)
     if nan_lane is not None:
         a[nan_lane, 2] = -a[nan_lane, 2]
+    if n_real is not None:
+        a[:, n_real:] = torch.eye(b, device="cuda")
+        bb[:, n_real - 1:] = 0.0
+        r[:, n_real * b:] = 0.0
     return a, bb, r
 
 
@@ -457,28 +474,31 @@ def dense_logdet_q(torch, kd, r):
             (w * w).sum(-1), info)
 
 
-def hold_case_b5(torch, band, case, k, m, b, seed, nan_lane):
-    """B5 on the synthetic input against its plain version and float64
-    (dense Cholesky of the whole block-tridiagonal matrix) at B5_TOL; the
+def hold_case_b5(torch, band, case, k, m, b, seed, nan_lane, n_real=None):
+    """B5 on the synthetic input (with ``n_real``, its blocks from n_real
+    on inert and skipped) against its plain version and float64 (dense
+    Cholesky of the real blocks' block-tridiagonal matrix) at B5_TOL; the
     ``nan_lane`` must give NaN in its own ld and q only.  Returns the max
     absolute error to the plain version."""
-    a, bb, r = cr_synthetic(torch, k, m, b, seed, nan_lane)
-    ld, q = band.cr_logdet_q(a, bb, r)
+    a, bb, r = cr_synthetic(torch, k, m, b, seed, nan_lane, n_real)
+    ld, q = band.cr_logdet_q(a, bb, r, n_real)
     torch.cuda.synchronize()
-    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r, n_real)
     nan_ok = bool(torch.isnan(ld[nan_lane]) and torch.isnan(q[nan_lane]))
     good = torch.tensor([i != nan_lane for i in range(k)], device="cuda")
     ld, q, p_ld, p_q = (v[good] for v in (ld, q, p_ld, p_q))
     a, bb, r = a[good], bb[good], r[good]
+    nr = m if n_real is None else n_real
     o_ld, o_q, info = dense_logdet_q(
-        torch, block_tridiagonal(torch, a, bb, m, torch.float64), r.double())
+        torch, block_tridiagonal(torch, a, bb, nr, torch.float64),
+        r[:, :nr * b].double())
     if int(info.max()) != 0:
         fail(f"{case}: float64 Cholesky failed on the SPD input")
     err = {"ld_rel_plain": rel(ld, p_ld), "q_rel_plain": rel(q, p_q),
            "ld_rel_f64": rel(ld, o_ld), "q_rel_f64": rel(q, o_q)}
     finite = bool(torch.isfinite(ld).all() and torch.isfinite(q).all())
     emit({"phase": "kernels", "case": case, "kernel": "B5",
-          "shape": [k, m, b, b], "nan_lane": nan_lane,
+          "shape": [k, m, b, b], "n_real": nr, "nan_lane": nan_lane,
           "nan_lane_isolated": nan_ok, "other_lanes_finite": finite,
           "errors": err, "tolerance": B5_TOL})
     misses = [f"{key}={v}" for key, v in err.items()
@@ -541,14 +561,15 @@ def b5_bound(k, nb, m, b):
     solve of r (b²), per coupling one b×b triangular solve (b³), one
     symmetric update (b³, each product counted once) and the update of r
     (2b²) — and its bytes: a, bb and r read once, ld and q written.  The
-    schedule's own count, cyclic reduction over all m blocks (per
-    eliminated block b³/3 + (2b+1)b² for the factor and solve, 6b³ + 4b²
-    for the products, the symmetric ones in full; the last block b³/3 +
-    b²), is returned beside it as the algorithm's work."""
+    schedule's own count, cyclic reduction over the nb real blocks (per
+    eliminated block b³/3 for the factor, b³/3 for L⁻¹, 4b³ for
+    G = L⁻¹[B_left | B_rightᵀ], 6b³ + 4b² for the three update products
+    and r, the symmetric ones in full; the last block b³/3 + b²), is
+    returned beside it as the algorithm's work."""
     flop = k * (nb * (b ** 3 / 3 + b * b) + (nb - 1) * (2 * b ** 3
                                                          + 2 * b * b))
-    cr_flop = k * ((m - 1) * (b ** 3 / 3 + (2 * b + 1) * b * b + 6 * b ** 3
-                              + 4 * b * b) + b ** 3 / 3 + b * b)
+    cr_flop = k * ((nb - 1) * (2 * b ** 3 / 3 + 10 * b ** 3 + 4 * b * b)
+                   + b ** 3 / 3 + b * b)
     nbytes = 4.0 * (2 * k * m * b * b + k * m * b + 2 * k)
     t_op, t_b = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_op, t_b), ("operations" if t_op >= t_b else "bytes"),
@@ -567,12 +588,15 @@ def check_b5(torch):
                            10, 64, 128, seed=0, nan_lane=3)
     hold_case_b5(torch, band, "cr_synthetic_small", 3, 8, 16, seed=1,
                  nan_lane=1)
+    hold_case_b5(torch, band, "cr_synthetic_chooser_pad", 10, 32, 128,
+                 seed=2, nan_lane=4, n_real=BAND_CHOOSER_BLOCKS)
 
     fb = band_flagship_blocks(torch)
-    a, bb, r = fb["a"], fb["bb"], fb["r"]
+    a, bb, r, nr = fb["a"], fb["bb"], fb["r"], fb["nb"]
     k, m, b, _ = a.shape
-    ld, q = band.cr_logdet_q(a, bb, r)
-    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    ld, q = band.cr_logdet_q(a, bb, r, nr)
+    ld_all, q_all = band.cr_logdet_q(a, bb, r)
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r, nr)
     kd = block_tridiagonal(torch, a, bb, fb["nb"], torch.float32)
     rd = r[:, :fb["nb"] * b].contiguous()
     o_ld, o_q, info = dense_logdet_q(torch, kd.double(), rd.double())
@@ -583,12 +607,14 @@ def check_b5(torch):
            "library_lp_rel_f64": rel(lp_of(l_ld, l_q), lp_of(o_ld, o_q)),
            "ld_rel_f64": rel(ld, o_ld), "q_rel_f64": rel(q, o_q),
            "oracle_info_max": int(info.max()),
-           "library_info_max": int(l_info.max())}
-    bnd, by, cr_flop = b5_bound(k, fb["nb"], m, b)
+           "library_info_max": int(l_info.max()),
+           "n_real_bitwise_equal_all_blocks": bool(
+               torch.equal(ld, ld_all) and torch.equal(q, q_all))}
+    bnd, by, cr_flop = b5_bound(k, nr, m, b)
     rec = dict(max_abs_err=max_abs,
-               ms=cuda_ms(torch, lambda: band.cr_logdet_q(a, bb, r), 20),
-               plain_ms=cuda_ms(torch, lambda: band.cr_logdet_q_ref(a, bb, r),
-                                1),
+               ms=cuda_ms(torch, lambda: band.cr_logdet_q(a, bb, r, nr), 20),
+               plain_ms=cuda_ms(
+                   torch, lambda: band.cr_logdet_q_ref(a, bb, r, nr), 1),
                bound_ms=bnd, bound_by=by,
                library_ms=cuda_ms(torch, lib, 3))
     scan_ms = cuda_ms(torch, lambda: band.band_logdet_q(
@@ -604,7 +630,8 @@ def check_b5(torch):
           "times": rec,
           "padded_tail_max": fb["tail_max"]})
     if (max(err["lp_rel_plain"], err["lp_rel_f64"]) > 2e-4
-            or err["oracle_info_max"] != 0 or fb["tail_max"] != 0.0):
+            or err["oracle_info_max"] != 0 or fb["tail_max"] != 0.0
+            or not err["n_real_bitwise_equal_all_blocks"]):
         fail(f"band flagship blocks: {err} tail={fb['tail_max']}")
     return rec
 
@@ -649,26 +676,33 @@ def device_ms_by_kernel(torch, fn):
     arguments dropped), and the count of each; ``ProfilerStep*`` is the
     recorded call's span, not a kernel.  The profiler records the second
     of two calls: a session's first events can be lost when earlier
-    sessions ran in the process, so the first call is its warm-up step."""
+    sessions ran in the process, so the first call is its warm-up step.
+    On an H100 the ninth and tenth sessions of one process came back with
+    no device events at all; such a session is run again, up to three
+    times, and an empty result is returned only if all three were."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
-    ms, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            hit = re.search(r"(\w+_kernel)", e.name)
-            name = hit.group(1) if hit else e.name.split(" (")[0]
-            ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[name] = count.get(name, 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+        ms, count = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                hit = re.search(r"(\w+_kernel)", e.name)
+                name = hit.group(1) if hit else e.name.split(" (")[0]
+                ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+                count[name] = count.get(name, 0) + 1
+        if ms:
+            break
     return {k: [v, count[k]] for k, v in sorted(ms.items(),
                                                 key=lambda kv: -kv[1])}
 
@@ -720,7 +754,8 @@ def check_kernels(torch, gk):
     for case, k, n, seed, nan_lane in (
             ("pending_pad_well_conditioned", 10, 5248, 2, None),
             ("chooser_pad_nan_lane", 12, 16, 3, 5),
-            ("ragged_nan_lane", 3, 1000, 1, 0)):
+            ("ragged_nan_lane", 3, 1000, 1, 0),
+            ("five_tiles", 2, 640, 4, None)):
         hold_case(torch, gk, case, k, n, seed, nan_lane)
         hold_case_b4(torch, gk, case, k, n, seed, nan_lane)
 
@@ -1420,9 +1455,27 @@ def small_pad_times(torch):
 
 
 # --------------------------------------------------------------- --vs
-def build_shifted_chol(srcs):
-    """{label: source dir} -> {label: library}: each dir's
-    ``shifted_chol.cu`` (beside its ``tile_ops.cuh``) built with the
+def _c_entry(src, name):
+    """The C signature of ``name``'s entry in a source dir: the package's,
+    or, for an earlier B5 whose entry has no ``n_real``, the one without
+    it."""
+    import ctypes
+
+    from spearmint_tpu_torch.ops import build
+
+    sig = dict(build.SOURCES[name])
+    if name == "cyclic_reduction":
+        with open(os.path.join(src, "cyclic_reduction.cu")) as f:
+            if "int n_real" not in f.read():
+                p, i = ctypes.c_void_p, ctypes.c_int
+                sig["spm_cyclic_reduction"] = [p] * 6 + [i] * 3 + [
+                    ctypes.c_longlong, p]
+    return sig
+
+
+def build_sources(srcs):
+    """{label: source dir} -> {label: {source name: library}}: every kernel
+    source of each dir (beside its ``tile_ops.cuh``) built with the
     package's flags and ``-Xptxas -v``, one ``nvcc`` each, all at once;
     prints each build's ptxas report (registers, stack, spills)."""
     import ctypes
@@ -1433,55 +1486,111 @@ def build_shifted_chol(srcs):
     os.makedirs(out, exist_ok=True)
     procs = {}
     for label, src in srcs.items():
-        path = os.path.join(out, f"lib{label}.so")
-        procs[label] = (path, subprocess.Popen(
-            [build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-o", path,
-             os.path.join(src, "shifted_chol.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for label, (path, proc) in procs.items():
+        for name in build.SOURCES:
+            path = os.path.join(out, f"lib{label}_{name}.so")
+            procs[label, name] = (path, subprocess.Popen(
+                [build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-o", path,
+                 os.path.join(src, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {label: {} for label in srcs}
+    for (label, name), (path, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            fail(f"nvcc failed for {label}:\n{log}")
-        emit({"phase": "vs_ptxas", "build": label, "source": srcs[label],
-              "log": [ln.strip() for ln in log.splitlines() if ln.strip()]})
+            fail(f"nvcc failed for {label} {name}:\n{log}")
+        emit({"phase": "vs_ptxas", "build": label, "source": name,
+              "dir": srcs[label],
+              "log": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]})
         lib = ctypes.CDLL(path)
-        lib.spm_shifted_chol.argtypes = \
-            build.SOURCES["shifted_chol"]["spm_shifted_chol"]
-        lib.spm_shifted_chol.restype = ctypes.c_int
-        libs[label] = lib
+        for fn, argtypes in _c_entry(srcs[label], name).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[label][name] = lib
     return libs
 
 
+def cr_call(torch, lib, a, bb, r, n_real):
+    """One ``spm_cyclic_reduction`` of ``lib``; n_real None for an entry
+    without it (every block worked on)."""
+    from spearmint_tpu_torch.ops import band, gp_kernels as gk
+
+    k, m, b, _ = a.shape
+    ws = torch.empty(band.cr_workspace_floats(k, m, b), device="cuda")
+    ld = torch.empty(k, device="cuda")
+    q = torch.empty_like(ld)
+    p = gk._ptr
+    err = lib.spm_cyclic_reduction(
+        p(a), p(bb), p(r), p(ws), p(ld), p(q), k, m, b,
+        *(() if n_real is None else (n_real,)), ws.numel(), gk._stream(a))
+    gk._raise_on(err, "spm_cyclic_reduction")
+    return ld, q
+
+
 def vs_builds(torch, gk, dirs, seeds):
-    """``--vs DIR[,DIR...] [--seeds S,...]``: the checkout's
-    ``shifted_chol.cu`` against the one in each DIR (an earlier version of
-    the kernel, or a variant of it), every build loaded in turn in place of
-    the package's.  B1, B2, B4a and B4b timed in turns (a, b, b, a) at
+    """``--vs DIR[,DIR...] [--seeds S,...]``: the checkout's kernel sources
+    against those in each DIR (an earlier tree's, or a variant), every
+    build loaded in turn in place of the package's, timed in turns
+    (a, b, b, a; 3 calls a turn, B5 20).  B1, B2, B4a and B4b at
     [10, 5120, 5120], [10, 5248, 5248] and [3, 1000, 1000], each build's
-    ld and q (and L) held to the checkout's; one B1 call of each build
-    split by kernel name.  With ``--seeds``, per seed and per build (in
-    turns): two flagship and two constrained suggestions from the initial
-    chain states, each step's B1 and B4a launches (the slice evaluations),
-    the lanes whose ld or q came back non-finite, and B4a's lp against a
-    float64 factorization of the same matrix (nats, over finite lanes)."""
+    ld, q, L and w held to the checkout's (relative, and bit for bit); B3
+    at [10, 5120, 5120] and [10, 5248, 5248] on B2's factor of the same
+    input; B5 on the band flagship's blocks (40 real of 64) and on the
+    synthetic [10, 32, 128, 128] with 20 real, the checkout's with
+    ``n_real`` and without it (``checkout_all_blocks``), an earlier
+    entry without it; one call of each kernel split by kernel name (every
+    build's at the first B3 and B5 shape, the checkout's alone at the
+    second and for B1: a process's profiler sessions are few).  With
+    ``--seeds``, per seed and per build (in turns): two flagship and two
+    constrained suggestions from the initial chain states, each step's B1
+    and B4a launches (the slice evaluations), the lanes whose ld or q came
+    back non-finite, and B4a's lp against a float64 factorization of the
+    same matrix (nats, over finite lanes)."""
     from spearmint_tpu_torch.engine.constrained import (
         ConstraintState, suggest_step_constrained,
     )
     from spearmint_tpu_torch.engine.suggest import (
         SuggestConfig, init_chain_states, suggest_step,
     )
-    from spearmint_tpu_torch.ops import build
+    from spearmint_tpu_torch.ops import band, build
 
     srcs = {"checkout": build.CSRC,
             **{os.path.basename(os.path.normpath(p)): os.path.abspath(p)
                for p in dirs}}
-    libs = build_shifted_chol(srcs)
+    libs = build_sources(srcs)
     names = list(libs)
     order = names + names[::-1]
 
     def use(label):
-        build._loaded["shifted_chol"] = libs[label]
+        for name, lib in libs[label].items():
+            build._loaded[name] = lib
+
+    def turns(kname, shape, fn, reps=3, split=()):
+        """fn(label) -> outputs; timed in turns; outputs held to the
+        checkout's; one call of each build in ``split`` by kernel name."""
+        ms, outs = {v: [] for v in names}, {}
+        for v in order:
+            use(v)
+            outs[v] = fn(v)
+            ms[v].append(cuda_ms(torch, lambda: fn(v), reps))
+        ref = outs[names[0]]
+        agree = {}
+        for v in names[1:]:
+            agree[v] = {f"out{i}_max_abs": absmax(o, ro)
+                        for i, (o, ro) in enumerate(zip(outs[v], ref))}
+            agree[v]["bitwise_equal"] = all(
+                torch.equal(o.nan_to_num(), ro.nan_to_num())
+                for o, ro in zip(outs[v], ref))
+        emit({"phase": "vs_turns", "kernel": kname, "shape": shape,
+              "order": order, "ms": ms,
+              "ms_mean": {v: float(np.mean(t)) for v, t in ms.items()},
+              "agree_with_checkout": agree})
+        for v in split:
+            use(v)
+            emit({"phase": "vs_split", "kernel": kname, "build": v,
+                  "shape": shape, "device_ms_count": device_ms_by_kernel(
+                      torch, lambda: fn(v))})
+        del outs
 
     calls = {"B1": lambda m, d, r, km: gk.shifted_logdet_q(m, d, r),
              "B2": lambda m, d, r, km: gk.shifted_factor_logdet_q(m, d, r),
@@ -1491,29 +1600,39 @@ def vs_builds(torch, gk, dirs, seeds):
         m, d, r = well_conditioned(torch, k, n, seed=0)
         km = (m + torch.diag_embed(d)).contiguous()
         for kname, fn in calls.items():
-            ms, outs = {v: [] for v in names}, {}
-            for v in order:
-                use(v)
-                outs[v] = fn(m, d, r, km)
-                ms[v].append(cuda_ms(torch, lambda: fn(m, d, r, km), 3))
-            ref = outs[names[0]]
-            agree = {v: {"ld_rel": rel(outs[v][0], ref[0]),
-                         "q_rel": rel(outs[v][1], ref[1]),
-                         **({"L_abs": absmax(outs[v][2], ref[2])}
-                            if len(ref) == 4 else {})}
-                     for v in names[1:]}
-            emit({"phase": "vs_turns", "kernel": kname, "shape": [k, n, n],
-                  "order": order, "ms": ms,
-                  "ms_mean": {v: float(np.mean(t)) for v, t in ms.items()},
-                  "agree_with_checkout": agree})
-        if n == 5120:
-            for v in names:
-                use(v)
-                emit({"phase": "vs_b1_split", "build": v, "shape": [k, n, n],
-                      "device_ms_count": device_ms_by_kernel(
-                          torch, lambda: gk.shifted_logdet_q(m, d, r))})
-        del m, d, r, km, outs
+            turns(kname, [k, n, n], lambda v, fn=fn: fn(m, d, r, km),
+                  split=names[:1] if kname == "B1" and n == 5120 else ())
+        if n != 1000:
+            use(names[0])
+            lmat = gk.shifted_factor_logdet_q(m, d, r)[2]
+            del m, d, km
+            turns("B3", [k, n, n], lambda v: (gk.tri_inverse(lmat),),
+                  split=names if n == 5120 else names[:1])
+            del lmat
         torch.cuda.empty_cache()
+
+    fb = band_flagship_blocks(torch)
+    b5_cases = [("band_flagship_blocks", fb["a"], fb["bb"], fb["r"], fb["nb"])]
+    del fb
+    b5_cases.append(("synthetic_20_of_32", *cr_synthetic(
+        torch, 10, 32, 128, seed=2, n_real=BAND_CHOOSER_BLOCKS),
+        BAND_CHOOSER_BLOCKS))
+    for i, (case, a, bb, r, nr) in enumerate(b5_cases):
+        def b5(v, a=a, bb=bb, r=r, nr=nr):
+            lib = libs[v]["cyclic_reduction"]
+            takes_n_real = len(lib.spm_cyclic_reduction.argtypes) == 12
+            return cr_call(torch, lib, a, bb, r,
+                           nr if takes_n_real else None)
+        turns("B5", [case, *a.shape], b5, reps=20,
+              split=names if i == 0 else names[:1])
+        all_ms = cuda_ms(torch, lambda: cr_call(
+            torch, libs["checkout"]["cyclic_reduction"], a, bb, r,
+            a.shape[1]), 20)
+        emit({"phase": "vs_b5_checkout_all_blocks", "case": case,
+              "shape": list(a.shape), "ms": all_ms})
+    del b5_cases
+    torch.cuda.empty_cache()
+    use(names[0])
 
     if not seeds:
         return

@@ -36,16 +36,18 @@ Everything is batched over a leading chains axis K (the JAX package vmaps
 one chain).  Left out of the JAX module on purpose: ``_householder_qr_scan``
 (a fallback for a missing geqrf; ``torch.geqrf`` always exists),
 ``_chol_small`` and ``_tri_inv_small`` (the MXU's nilpotent-squaring
-inverse; B5 forward-substitutes instead), ``cr_eval``'s batching rule (the
-batch axis is explicit) and the ``CR_PALLAS`` / ``_cr_pallas_fits`` gates
-(on the card B5 always runs).  One decision differs: the JAX factory takes
+inverse; B5 inverts by 2×2 block recursion instead), ``cr_eval``'s
+batching rule (the batch axis is explicit) and the ``CR_PALLAS`` /
+``_cr_pallas_fits`` gates (on the card B5 always runs).  One decision differs: the JAX factory takes
 cyclic reduction from pad 2048, where ``_effective_jitter`` adds no
 conditioning floor yet; here from pad 2560 (``use_cr``: pad > 2048).
 
 B5 (``csrc/cyclic_reduction.cu``) launches for a CUDA tensor; its plain
-version ``cr_logdet_q_ref``, on the kernel's own schedule (b-column
-Cholesky with the pivot d2·rsqrt(d2), row forward substitution of
-[B_left | B_rightᵀ | r_odd], the even-row updates), serves CPU tensors.
+version ``cr_logdet_q_ref``, on the kernel's own schedule (each odd block
+padded to a 128-wide tile, factored with the pivot d2·rsqrt(d2) and
+inverted as B1's diagonal tile is, G = L⁻¹[B_left | B_rightᵀ] and
+g = L⁻¹r_odd by products with that inverse, the even-row updates; the
+inert padding blocks past ``n_real`` skipped), serves CPU tensors.
 ``launches`` counts kernel launches (CUDA only).
 """
 
@@ -59,8 +61,8 @@ from spearmint_tpu_torch.ops import gp_kernels
 
 # Pads above this evaluate by cyclic reduction (B5), the others by the scan.
 CR_ABOVE = 2048
-# The largest block width B5 takes (its factor and right-hand sides live in
-# one block's shared memory).
+# The largest block width B5 takes (each block is factored and inverted as
+# one 128-wide tile in shared memory).
 CR_MAX_BLOCK = 128
 
 launches = {"cr_logdet_q": 0}
@@ -193,61 +195,95 @@ def _cr_assemble(d_blocks, s_blocks, amp2, dadd):
     return a, a2 * s_blocks
 
 
-def _factor_solve_rows(a, rhs):
-    """B5's block step on [G, b, b] and [G, b, c]: the unblocked Cholesky
-    (pivot d2·rsqrt(d2)), then L X = rhs by row forward substitution.
-    Returns (diag L [G, b], X)."""
-    lmat = gp_kernels.column_cholesky(a)
-    x = rhs.clone()
-    for r in range(a.shape[-1]):
-        if r:
-            x[:, r] -= torch.einsum("gk,gkc->gc", lmat[:, r, :r], x[:, :r])
-        x[:, r] /= lmat[:, r, r, None]
-    return torch.diagonal(lmat, dim1=-2, dim2=-1), x
+def _cr_tile_solve(a, v):
+    """B5's ``factor_kernel`` step on [G, b, b] blocks and [G, b] vectors:
+    the block padded with identity to a CHOL_TILE tile, factored and
+    inverted as B1's diagonal tile (``gp_kernels._tile_factor``), then
+    g = L⁻¹v.  Returns (Σ log diag L [G], L⁻¹ [G, b, b], g [G, b])."""
+    g_count, b, _ = a.shape
+    t = gp_kernels.CHOL_TILE
+    tile = torch.eye(t, dtype=a.dtype, device=a.device).repeat(g_count, 1, 1)
+    tile[:, :b, :b] = a
+    lmat, x = gp_kernels._tile_factor(tile)
+    vp = torch.zeros(g_count, t, dtype=a.dtype, device=a.device)
+    vp[:, :b] = v
+    g = (x @ vp[..., None])[:, :b, 0]
+    ld = torch.log(torch.diagonal(lmat, dim1=-2, dim2=-1)[:, :b]).sum(-1)
+    return ld, x[:, :b, :b], g
 
 
-def _shift_down(x):
-    """x[:, i] → slot i+1, zeros into slot 0."""
-    out = torch.zeros_like(x)
-    out[:, 1:] = x[:, :-1]
-    return out
-
-
-def cr_logdet_q_ref(a, bb, r):
+def cr_logdet_q_ref(a, bb, r, n_real=None):
     """Plain version of B5: (ld [K], q [K]) of the block-tridiagonal K
-    with diagonal blocks a and couplings bb ([K, m, b, b]), r [K, m·b], by
-    the kernel's levels: each factors the odd blocks, forward-substitutes
-    [B_left | B_rightᵀ | r_odd], and updates the even blocks as
-    a_ev −= (G1ᵀG1 + shift_down(G2ᵀG2)), r_ev −= (G1ᵀg + shift_down(G2ᵀg)),
-    bb = −G2ᵀG1; then the last block.  Each eliminated block's ld and q
-    are summed in the kernel's slot order (level by level, then the last
-    block), so inert identity blocks add exactly 0."""
+    with diagonal blocks a and couplings bb ([K, m, b, b]), r [K, m·b], the
+    blocks from ``n_real`` on (default m) inert padding, by the kernel's
+    levels.  Each factors and inverts the real odd blocks
+    (``_cr_tile_solve``: X = L⁻¹, g = X r_odd), forms G1 = X B_left and
+    G2 = X B_rightᵀ, and updates the real even blocks: a_ev −= G1ᵀG1 +
+    G2ᵀG2 (of the odd blocks on either side), r_ev −= G1ᵀg + G2ᵀg,
+    bb_ev = −G2ᵀG1; then the last block.  Each eliminated block's ld and
+    q go to the kernel's slot (level by level, then the last block),
+    skipped blocks' slots stay 0, and the slots are summed in order, so
+    inert blocks add exactly 0."""
     _check_cr_args(a, bb, r)
     k_batch, m, b, _ = a.shape
-    r = r.reshape(k_batch, m, b)
-    slots = []
-    while m > 1:
-        h = m // 2
-        rhs = torch.cat([bb[:, 0::2], bb[:, 1::2].mT, r[:, 1::2, :, None]],
-                        -1).reshape(k_batch * h, b, 2 * b + 1)
-        dpiv, x = _factor_solve_rows(a[:, 1::2].reshape(k_batch * h, b, b),
-                                     rhs)
-        x = x.reshape(k_batch, h, b, 2 * b + 1)
-        g1, g2, g = x[..., :b], x[..., b:2 * b], x[..., 2 * b:]
-        slots += zip(torch.log(dpiv).reshape(k_batch, h, b).sum(-1).unbind(1),
-                     (g * g).reshape(k_batch, h, b).sum(-1).unbind(1))
-        a = a[:, 0::2] - (g1.mT @ g1 + _shift_down(g2.mT @ g2))
-        r = r[:, 0::2] - (g1.mT @ g + _shift_down(g2.mT @ g))[..., 0]
-        bb = -(g2.mT @ g1)
-        m = h
-    dpiv, x = _factor_solve_rows(a[:, 0], r[:, 0, :, None])
-    slots.append((torch.log(dpiv).sum(-1), (x[..., 0] * x[..., 0]).sum(-1)))
-    ld = torch.zeros(k_batch, dtype=a.dtype, device=a.device)
+    n_real = _check_n_real(n_real, m)
+    a, bb = a.clone(), bb.clone()
+    r = r.reshape(k_batch, m, b).clone()
+    like = dict(dtype=a.dtype, device=a.device)
+    pl = torch.zeros(k_batch, m, **like)
+    pq = torch.zeros(k_batch, m, **like)
+    mc, lvl = m, 0
+    while mc > 1:
+        h = mc // 2
+        nr = (n_real + (1 << lvl) - 1) >> lvl   # real active blocks
+        nodd, neven = nr // 2, (nr + 1) // 2
+        if nodd:
+            i = torch.arange(nodd, device=a.device)
+            odd, left = (2 * i + 1) << lvl, (2 * i) << lvl
+            even = (2 * torch.arange(neven, device=a.device)) << lvl
+            ld_p, x, g = _cr_tile_solve(a[:, odd].reshape(-1, b, b),
+                                        r[:, odd].reshape(-1, b))
+            x = x.reshape(k_batch, nodd, b, b)
+            g = g.reshape(k_batch, nodd, b, 1)
+            pl[:, m - mc:m - mc + nodd] = ld_p.reshape(k_batch, nodd)
+            pq[:, m - mc:m - mc + nodd] = (g * g).sum((-2, -1))
+            g1 = x @ bb[:, left]
+            n2 = min(nodd, h - 1)   # the level's last odd row's G2 is unused
+            g2 = x[:, :n2] @ bb[:, odd[:n2]].mT
+            da = torch.zeros(k_batch, neven, b, b, **like)
+            dr = torch.zeros(k_batch, neven, b, **like)
+            da[:, :nodd] += g1.mT @ g1
+            dr[:, :nodd] += (g1.mT @ g)[..., 0]
+            da[:, 1:] += g2[:, :neven - 1].mT @ g2[:, :neven - 1]
+            dr[:, 1:] += (g2[:, :neven - 1].mT @ g[:, :neven - 1])[..., 0]
+            a[:, even] = a[:, even] - da
+            r[:, even] = r[:, even] - dr
+            bb[:, even[:n2]] = -(g2.mT @ g1[:, :n2])
+        mc, lvl = h, lvl + 1
+    ld_p, _, g = _cr_tile_solve(a[:, 0], r[:, 0])
+    pl[:, m - 1] = ld_p
+    pq[:, m - 1] = (g * g).sum(-1)
+    ld = torch.zeros(k_batch, **like)
     q = torch.zeros_like(ld)
-    for s_ld, s_q in slots:
-        ld = ld + s_ld
-        q = q + s_q
+    for s in range(m):
+        ld = ld + pl[:, s]
+        q = q + pq[:, s]
     return ld, q
+
+
+def _check_n_real(n_real, m):
+    if n_real is None:
+        return m
+    if not 1 <= n_real <= m:
+        raise ValueError(f"n_real={n_real}: want 1 ≤ n_real ≤ m={m}")
+    return int(n_real)
+
+
+def cr_workspace_floats(k_batch, m, b):
+    """Floats of ``spm_cyclic_reduction``'s workspace: working copies of a,
+    bb and r, then X, G1, G2 and g of the odd blocks, then the slots."""
+    km, kh = k_batch * m, k_batch * m // 2
+    return 2 * km * b * b + km * b + 3 * kh * b * b + kh * b + 2 * km
 
 
 def _check_cr_args(a, bb, r):
@@ -270,23 +306,25 @@ def _check_cr_args(a, bb, r):
         raise ValueError(f"r: want {(k_batch, m * b)}, got {tuple(r.shape)}")
 
 
-def cr_logdet_q(a, bb, r):
-    """B5: (ld [K], q [K]) of block-tridiagonal K (see ``cr_logdet_q_ref``)."""
+def cr_logdet_q(a, bb, r, n_real=None):
+    """B5: (ld [K], q [K]) of block-tridiagonal K (see ``cr_logdet_q_ref``);
+    blocks from ``n_real`` on (default m) are inert padding and are not
+    worked on."""
     _check_cr_args(a, bb, r)
+    k_batch, m, b, _ = a.shape
+    n_real = _check_n_real(n_real, m)
     if not gp_kernels._on_cuda(a):
-        return cr_logdet_q_ref(a, bb, r)
+        return cr_logdet_q_ref(a, bb, r, n_real)
     from spearmint_tpu_torch.ops import build
 
-    k_batch, m, b, _ = a.shape
-    km = k_batch * m
-    ws = torch.empty(3 * km * b * b + km * b + km // 2 * b + 2 * km,
-                     dtype=a.dtype, device=a.device)
+    ws = torch.empty(cr_workspace_floats(k_batch, m, b), dtype=a.dtype,
+                     device=a.device)
     ld = torch.empty(k_batch, dtype=a.dtype, device=a.device)
     q = torch.empty_like(ld)
     p, s = gp_kernels._ptr, gp_kernels._stream
     with torch.cuda.device(a.device):
         err = build.load("cyclic_reduction").spm_cyclic_reduction(
-            p(a), p(bb), p(r), p(ws), p(ld), p(q), k_batch, m, b,
+            p(a), p(bb), p(r), p(ws), p(ld), p(q), k_batch, m, b, n_real,
             ws.numel(), s(a))
     gp_kernels._raise_on(err, "spm_cyclic_reduction")
     launches["cr_logdet_q"] += 1
@@ -325,8 +363,9 @@ def band_marginal_factory(x, y, mask, ls, kernel, block: int = 128,
         cr = use_cr(x.shape[0])
     d_blocks, s_blocks, uy, um = band_reduce(x, y, mask, ls, kernel, block)
     mask_use = mask
+    n_real = d_blocks.shape[1]
     if cr:
-        nb = d_blocks.shape[1]
+        nb = n_real
         ext = (max(2, 1 << (nb - 1).bit_length()) - nb) * block
         uy = torch.nn.functional.pad(uy, (0, ext))
         um = torch.nn.functional.pad(um, (0, ext))
@@ -340,7 +379,7 @@ def band_marginal_factory(x, y, mask, ls, kernel, block: int = 128,
         resid = uy - mean[:, None] * um
         if cr:
             a, bb = _cr_assemble(d_blocks, s_blocks, amp2, dadd)
-            ld, q = cr_logdet_q(a, bb, resid.contiguous())
+            ld, q = cr_logdet_q(a, bb, resid.contiguous(), n_real)
         else:
             ld, q = band_logdet_q(d_blocks, s_blocks, amp2, dadd, resid)
         lp = -ld - 0.5 * q

@@ -33,7 +33,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     "shifted_chol": {"spm_shifted_chol": [_P] * 8 + [_I, _I, _I, _P]},
     "tri_inverse": {"spm_tri_inverse": [_P, _P, _I, _I, _P]},
-    "cyclic_reduction": {"spm_cyclic_reduction": [_P] * 6 + [_I] * 3
+    "cyclic_reduction": {"spm_cyclic_reduction": [_P] * 6 + [_I] * 4
                          + [_L, _P]},
 }
 

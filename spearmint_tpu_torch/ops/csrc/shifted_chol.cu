@@ -47,7 +47,8 @@
 //                       blockIdx.x), depth CHOL_PANEL.  A panel wider than
 //                       CHOL_TILE is factored CHOL_TILE columns at a time,
 //                       each step first updating the panel's next columns.
-// Steps 2 and 3 share one device routine, tile_product: a 128x128 output
+// Steps 2 and 3 share one device routine of tile_ops.cuh (as do B3 and
+// B5), tile_product: a 128x128 output
 // tile, 256 threads, 8x8 outputs per thread in registers, operands staged
 // through shared memory in 32-deep k-slices that cp.async double-buffers,
 // so the next slice's copy overlaps this slice's FMAs.  Operands are stored
@@ -62,281 +63,13 @@
 // synchronise; the caller's stream orders the launches.  ld and q are
 // accumulated by one block per lane in launch order, so they are
 // deterministic, bit for bit.
-#include "tile_ops.cuh"   // NTHREADS, block_sum
+#include "tile_ops.cuh"
 
-#define CHOL_TILE 128     // diagonal and trailing tile width
 #define CHOL_PANEL 256    // trailing depth; equal to gp_kernels.CHOL_PANEL
-#define CHOL_SUB 32       // block of the diagonal tile; gp_kernels.CHOL_SUB
-#define KSLICE 32         // depth of one staged operand slice
-#define SPAD (CHOL_TILE + 4)   // pitch of staged operands and of the tile
-#define TT (CHOL_SUB + 4)      // pitch of the inverse's 32x32 products
 
-static_assert(NTHREADS == 256, "8x8 outputs per thread cover 128x128");
 static_assert(CHOL_PANEL % CHOL_TILE == 0, "panel = whole tiles");
-static_assert(CHOL_TILE == 4 * CHOL_SUB, "the tile is 4x4 blocks");
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBlk = CHOL_SUB;   // 32: a warp's block
-constexpr size_t kDiagSmem = (2 * CHOL_TILE * SPAD + 4 * kBlk * TT
-                              + CHOL_TILE + 2 * kBlk + NTHREADS / 32)
-                             * sizeof(float);
-constexpr size_t kProdSmem = 4 * KSLICE * SPAD * sizeof(float);
-
-// ------------------------------------------------------ asynchronous copies
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full)
-{
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(full ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit()
-{
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait()
-{
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// s[m][r] <- g[r * ld + k + m] for a 128-row x KSLICE slice of a row-major
-// operand; rows >= nrows are zero-filled.  A warp copies 4 rows x 8
-// columns (32-byte runs of each row); its stores hit 32 distinct banks
-// because SPAD = 4 (mod 32).
-__device__ __forceinline__ void load_slice(float* s, const float* g, int ld,
-                                           int nrows, int k)
-{
-    const int m = threadIdx.x & 7, r = threadIdx.x >> 3;   // r < 32
-    const float* src[4];
-    bool ok[4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-        const int rr = r + 32 * h;
-        ok[h] = rr < nrows;
-        src[h] = g + (size_t)(ok[h] ? rr : 0) * ld + k + m;
-    }
-#pragma unroll
-    for (int it = 0; it < 16; ++it) {
-        const int h = it & 3, mm = 8 * (it >> 2);
-        cp_async4(s + (m + mm) * SPAD + r + 32 * h, src[h] + mm, ok[h]);
-    }
-}
-
-// Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows row_of(ty, i) and
-// columns row_of(tx, j) for i, j < 8: two runs of 4, 64 apart.
-__device__ __forceinline__ int row_of(int t, int i)
-{
-    return (i < 4 ? 0 : 60) + t * 4 + i;
-}
-
-// acc[i][j] = sum_{m < depth} A(row_of(ty, i), m) * B(row_of(tx, j), m) on
-// a 128x128 tile, A and B row-major (element (r, m) at ag[r * lda + m];
-// rows >= arows, >= brows read as 0).  depth is a multiple of KSLICE.
-// smem holds two stages of both operands (kProdSmem bytes).
-__device__ __forceinline__ void tile_product(
-    float (&acc)[8][8], float* smem, const float* ag, int lda, int arows,
-    const float* bg, int ldb, int brows, int depth)
-{
-    constexpr int kStage = KSLICE * SPAD;
-    float* as = smem;
-    float* bs = smem + 2 * kStage;
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    const int ns = depth / KSLICE;
-    load_slice(as, ag, lda, arows, 0);
-    load_slice(bs, bg, ldb, brows, 0);
-    cp_async_commit();
-    for (int st = 0; st < ns; ++st) {
-        if (st + 1 < ns) {
-            const int nb = (st + 1) & 1;
-            load_slice(as + nb * kStage, ag, lda, arows, (st + 1) * KSLICE);
-            load_slice(bs + nb * kStage, bg, ldb, brows, (st + 1) * KSLICE);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* a = as + (st & 1) * kStage;
-        const float* b = bs + (st & 1) * kStage;
-#pragma unroll
-        for (int kk = 0; kk < KSLICE; ++kk) {
-            const float4 a0 = *reinterpret_cast<const float4*>(
-                a + kk * SPAD + ty * 4);
-            const float4 a1 = *reinterpret_cast<const float4*>(
-                a + kk * SPAD + 64 + ty * 4);
-            const float4 b0 = *reinterpret_cast<const float4*>(
-                b + kk * SPAD + tx * 4);
-            const float4 b1 = *reinterpret_cast<const float4*>(
-                b + kk * SPAD + 64 + tx * 4);
-            const float av[8] = {a0.x, a0.y, a0.z, a0.w,
-                                 a1.x, a1.y, a1.z, a1.w};
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                                 b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-}
-
-// ------------------------------------------------------ the diagonal tile
-// The tile a and its inverse x are 4x4 blocks of 32x32 at pitch SPAD;
-// blk(p, I, J) is block (I, J).  A warp works on one block at a time: lane
-// r holds row r of one operand in registers.
-__device__ __forceinline__ float* blk(float* p, int I, int J)
-{
-    return p + (I * kBlk) * SPAD + J * kBlk;
-}
-
-template <int P>
-__device__ __forceinline__ void load_row(float (&v)[kBlk], const float* b,
-                                         int r)
-{
-#pragma unroll
-    for (int q = 0; q < kBlk / 4; ++q) {
-        const float4 t = *reinterpret_cast<const float4*>(b + r * P + 4 * q);
-        v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z;
-        v[4 * q + 3] = t.w;
-    }
-}
-
-template <int P>
-__device__ __forceinline__ void store_row(float* b, int r,
-                                          const float (&v)[kBlk])
-{
-#pragma unroll
-    for (int q = 0; q < kBlk / 4; ++q)
-        *reinterpret_cast<float4*>(b + r * P + 4 * q) = make_float4(
-            v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// One warp, lane r: o[c] += sum_m A[r][m] B[c][m] (kNT) or
-// sum_m A[r][m] B[m][c], A and B 32x32 at pitches PA and PB.  The lane
-// reads its own row of A as float4 and B as float4 broadcasts, in a loop
-// over four columns of A at a time: the kernel runs once per tile step, so
-// its code is fetched cold, and a short loop body is what keeps that cheap.
-template <bool kNT, int PA, int PB>
-__device__ __forceinline__ void warp_mm(float (&o)[kBlk], const float* a,
-                                        const float* b)
-{
-    const int r = threadIdx.x & 31;
-#pragma unroll 1
-    for (int m = 0; m < kBlk; m += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(a + r * PA + m);
-        const float v[4] = {av.x, av.y, av.z, av.w};
-        if (kNT) {
-#pragma unroll
-            for (int c = 0; c < kBlk; ++c) {
-                const float4 t = *reinterpret_cast<const float4*>(
-                    b + c * PB + m);
-                o[c] = fmaf(v[0], t.x, o[c]);
-                o[c] = fmaf(v[1], t.y, o[c]);
-                o[c] = fmaf(v[2], t.z, o[c]);
-                o[c] = fmaf(v[3], t.w, o[c]);
-            }
-        } else {
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-                for (int q = 0; q < kBlk / 4; ++q) {
-                    const float4 t = *reinterpret_cast<const float4*>(
-                        b + (m + u) * PB + 4 * q);
-                    o[4 * q] = fmaf(v[u], t.x, o[4 * q]);
-                    o[4 * q + 1] = fmaf(v[u], t.y, o[4 * q + 1]);
-                    o[4 * q + 2] = fmaf(v[u], t.z, o[4 * q + 2]);
-                    o[4 * q + 3] = fmaf(v[u], t.w, o[4 * q + 3]);
-                }
-        }
-    }
-}
-
-// One warp: factor diagonal block (s, s) of a (lower triangle read; lane l
-// holds row l), then its inverse Y (lane l computes column l, with
-// rsqrt(d2_r) as Y[r][r]).  Writes L (exact zeros above the diagonal) to
-// a and Y to x.  Column j reaches the lanes through col (two 32-float
-// buffers, alternating): each lane stores its A[l][j], and L[c][j] is
-// read back as float4 broadcasts times the pivot's rsqrt, bit for bit the
-// value lane c keeps.
-__device__ __forceinline__ void factor_block(float* a, float* x, float* col,
-                                             int s)
-{
-    const int l = threadIdx.x & 31;
-    float v[kBlk], y[kBlk];
-    float* lb = blk(a, s, s);
-    load_row<SPAD>(v, lb, l);
-    float myinv = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlk; ++j) {
-        float* cj = col + (j & 1) * kBlk;
-        cj[l] = v[j];
-        __syncwarp();
-        const float d2 = cj[j];
-        const float inv = rsqrtf(d2);
-        if (l == j) {
-            v[j] = d2 * inv;
-            myinv = inv;
-        } else if (l > j) {
-            v[j] *= inv;
-        }
-        const float lj = l > j ? v[j] : 0.f;
-#pragma unroll
-        for (int c4 = (j + 1) / 4; c4 < kBlk / 4; ++c4) {
-            const float4 t = *reinterpret_cast<const float4*>(cj + 4 * c4);
-            const float tc[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-                if (4 * c4 + u > j) v[4 * c4 + u] -= lj * (tc[u] * inv);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlk; ++j)
-        if (j > l) v[j] = 0.f;
-    store_row<SPAD>(lb, l, v);
-    col[l] = myinv;   // buffer 0: its last readers (column 30) are past
-    __syncwarp();     // column 31's barrier
-    // Y[r][l] = (delta_rl - sum_{m<r} L[r][m] Y[m][l]) rsqrt(d2_r), the sum
-    // in four interleaved parts, row r of L read as float4 broadcasts
-#pragma unroll
-    for (int r = 0; r < kBlk; ++r) {
-        float s4[4] = {r == l ? 1.f : 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int m4 = 0; m4 < (r + 3) / 4; ++m4) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                lb + r * SPAD + 4 * m4);
-            const float tm[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-                if (4 * m4 + u < r) s4[u] -= tm[u] * y[4 * m4 + u];
-        }
-        y[r] = ((s4[0] + s4[1]) + (s4[2] + s4[3])) * col[r];
-    }
-    float* yb = blk(x, s, s);
-#pragma unroll
-    for (int r = 0; r < kBlk; ++r) yb[r * SPAD + l] = y[r];
-}
-
-// (bi, bj), bj <= bi, of the t-th tile of a lower triangle in row order.
-__device__ __forceinline__ void tri_decode(int t, int& bi, int& bj)
-{
-    int i = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-    if ((i + 1) * (i + 2) / 2 <= t) ++i;
-    if (i * (i + 1) / 2 > t) --i;
-    bi = i;
-    bj = t - i * (i + 1) / 2;
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
@@ -344,14 +77,12 @@ diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
             float* __restrict__ ld, float* __restrict__ q, int n, int s0)
 {
     extern __shared__ float4 smem4[];
-    float* a = reinterpret_cast<float*>(smem4);   // [128][SPAD]: tile, L
-    float* x = a + CHOL_TILE * SPAD;              // [128][SPAD]: L^{-1}
-    float* t = x + CHOL_TILE * SPAD;              // [4][32][TT]: products
-    float* wk = t + 4 * kBlk * TT;                // [128]
-    float* col = wk + CHOL_TILE;                  // [2][32]: factor_block
-    float* red = col + 2 * kBlk;                  // [NTHREADS / 32]
+    const TileSmem sm = tile_smem(smem4);
+    float* a = sm.a;     // the tile, then L
+    float* x = sm.x;     // L^{-1}
+    float* wk = sm.v;
     const int lane = blockIdx.x;
-    const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+    const int tid = threadIdx.x;
     const int nb = min(CHOL_TILE, n - s0);
     const bool vec = (n & 3) == 0;   // then nb % 4 == 0 too
     float* A = ws + (size_t)lane * n * n;
@@ -390,92 +121,15 @@ diag_kernel(float* __restrict__ ws, const float* __restrict__ dshift,
     }
     __syncthreads();
 
-    // right-looking over the four block columns, three barriers each
-    for (int s = 0; s < 4; ++s) {
-        if (warp == 0) factor_block(a, x, col, s);
-        __syncthreads();
-        if (s == 3) break;
-        if (warp < 3 - s) {   // L[I][s] = A[I][s] Y_s^T
-            const int I = s + 1 + warp;
-            float o[kBlk] = {};
-            warp_mm<true, SPAD, SPAD>(o, blk(a, I, s), blk(x, s, s));
-            __syncwarp();
-            store_row<SPAD>(blk(a, I, s), l, o);
-        }
-        __syncthreads();
-        if (warp < (3 - s) * (4 - s) / 2) {   // A[I][J] -= L[I][s] L[J][s]^T
-            int I, J;
-            tri_decode(warp, I, J);
-            I += s + 1;
-            J += s + 1;
-            float o[kBlk] = {}, v[kBlk];
-            warp_mm<true, SPAD, SPAD>(o, blk(a, I, s), blk(a, J, s));
-            load_row<SPAD>(v, blk(a, I, J), l);
-#pragma unroll
-            for (int c = 0; c < kBlk; ++c) v[c] -= o[c];
-            store_row<SPAD>(blk(a, I, J), l, v);
-        }
-        __syncthreads();
-    }
+    factor_tile(a, x, sm.col);
+    invert_tile(a, x, sm.t);
 
-    // L^{-1}, below the diagonal blocks: X_BA = -X_BB (L_BA X_AA), first for
-    // the pairs of blocks (0, 1) and (2, 3), then for the halves
-    if (warp < 2) {
-        const int lo = 2 * warp;
-        float* tb = t + warp * kBlk * TT;
-        float o[kBlk] = {};
-        warp_mm<false, SPAD, SPAD>(o, blk(a, lo + 1, lo), blk(x, lo, lo));
-        store_row<TT>(tb, l, o);
-        __syncwarp();
-#pragma unroll
-        for (int c = 0; c < kBlk; ++c) o[c] = 0.f;
-        warp_mm<false, SPAD, TT>(o, blk(x, lo + 1, lo + 1), tb);
-#pragma unroll
-        for (int c = 0; c < kBlk; ++c) o[c] = -o[c];
-        store_row<SPAD>(blk(x, lo + 1, lo), l, o);
-    }
-    __syncthreads();
-    if (warp < 4) {   // T[I][J] = sum_{J <= K < 2} L[I][K] X[K][J]
-        const int I = 2 + (warp >> 1), J = warp & 1;
-        float o[kBlk] = {};
-        for (int K = J; K < 2; ++K)
-            warp_mm<false, SPAD, SPAD>(o, blk(a, I, K), blk(x, K, J));
-        store_row<TT>(t + warp * kBlk * TT, l, o);
-    }
-    __syncthreads();
-    if (warp < 4) {   // X[I][J] = -sum_{2 <= K <= I} X[I][K] T[K][J]
-        const int I = 2 + (warp >> 1), J = warp & 1;
-        float o[kBlk] = {};
-        for (int K = 2; K <= I; ++K)
-            warp_mm<false, SPAD, TT>(o, blk(x, I, K),
-                                     t + (2 * (K - 2) + J) * kBlk * TT);
-#pragma unroll
-        for (int c = 0; c < kBlk; ++c) o[c] = -o[c];
-        store_row<SPAD>(blk(x, I, J), l, o);
-    }
-    __syncthreads();
-
-    // w_k <- L_kk^{-1} w_k, a warp per 16 rows (lanes summed in a fixed
-    // order), then ld and q
+    // w_k <- L_kk^{-1} w_k, then ld and q
     float lg = 0.f, sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < CHOL_TILE / 8; ++i) {
-        const int r = warp * (CHOL_TILE / 8) + i;
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < CHOL_TILE / 32; ++j)
-            s += x[r * SPAD + l + 32 * j] * wk[l + 32 * j];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-        if (l == 0 && r < nb) {
-            wl[s0 + r] = s;
-            sq += s * s;
-            lg += logf(a[r * SPAD + r]);
-        }
-    }
-    lg = block_sum(lg, red);
+    tile_solve(a, x, wk, wl + s0, nb, lg, sq);
+    lg = block_sum(lg, sm.red);
     if (tid == 0) ld[lane] += lg;
-    sq = block_sum(sq, red);
+    sq = block_sum(sq, sm.red);
     if (tid == 0) q[lane] += sq;
 
     // linv <- X (row-major, for panel_kernel); the tile <- L, zeros above
@@ -625,7 +279,7 @@ extern "C" int spm_shifted_chol(const void* m0, const void* dshift,
     cudaError_t err;
     if ((err = cudaFuncSetAttribute(diag_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)kDiagSmem))) return err;
+                                    (int)kTileSmem))) return err;
     if ((err = cudaFuncSetAttribute(panel_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)kProdSmem))) return err;
@@ -647,7 +301,7 @@ extern "C" int spm_shifted_chol(const void* m0, const void* dshift,
     for (int k0 = 0; k0 < n; k0 += CHOL_PANEL) {
         const int k1 = min(k0 + CHOL_PANEL, n);
         for (int s0 = k0; s0 < k1; s0 += CHOL_TILE) {
-            diag_kernel<<<K, NTHREADS, kDiagSmem, s>>>(W, D, V, X, LD, Q, n,
+            diag_kernel<<<K, NTHREADS, kTileSmem, s>>>(W, D, V, X, LD, Q, n,
                                                       s0);
             const int s1 = s0 + CHOL_TILE;
             if (s1 < n) {

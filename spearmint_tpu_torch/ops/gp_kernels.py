@@ -11,15 +11,21 @@ from two sources:
 
 B1, B2, B4a and B4b are one CUDA kernel (``csrc/shifted_chol.cu``), with
 or without the diagonal shift and the emitted factor, as they are one
-Pallas body; B3 is ``csrc/tri_inverse.cu``.  Each wrapper launches its
-CUDA kernel for a CUDA tensor, and runs the plain PyTorch version beside
-it (``*_ref``) only for a tensor on the CPU.  The plain versions follow
-the kernels' own blocked schedules, so the CPU tests exercise the tiling,
-the ragged edge and the padded rows that the card runs: B1-B4b over
+Pallas body; B3 is ``csrc/tri_inverse.cu``.  Both are built on the device
+routines of ``csrc/tile_ops.cuh``.  Each wrapper launches its CUDA kernel
+for a CUDA tensor, and runs the plain PyTorch version beside it
+(``*_ref``) only for a tensor on the CPU.  The plain versions follow the
+kernels' own blocked schedules, so the CPU tests exercise the tiling, the
+ragged edge and the padded rows that the card runs: B1-B4b over
 CHOL_PANEL-wide panels with a CHOL_TILE-wide diagonal tile, factored by
 CHOL_SUB-column sub-blocks (pivot d2·rsqrt(d2), each sub-block inverted
 beside its factor) and inverted by 2×2 block recursion, the ragged last
-tile; B3 over PANEL-wide tiles with a forward-substitution tile inverse.
+tile; B3 by the same 2×2 block recursion lifted to the whole matrix:
+each CHOL_TILE-wide diagonal tile inverted as B1's is (its sub-blocks by
+row substitution, then the recursion inside the tile), then, for
+w = 1, 2, 4, … tiles, X_BA = −X_BB (L_BA X_AA) over the pairs of w-tile
+blocks, a ragged last pair and a ragged last tile (padded with identity)
+included.
 
 Inputs and outputs are float32 and contiguous.  B1/B2 take M [K, N, N],
 dshift [K, N], r [K, N] and factor M + diag(dshift); B4a/B4b take an
@@ -35,12 +41,10 @@ import ctypes
 
 import torch
 
-# Tile width of B3's schedule (tri_inverse_ref); must equal PANEL in
-# csrc/tile_ops.cuh.
-PANEL = 64
-# The Cholesky schedule of B1-B4b: panel width (the depth of each trailing
-# update), diagonal-tile width and its sub-block width; each must equal the
-# constant of the same name in csrc/shifted_chol.cu.
+# The kernels' schedule: the panel width of B1-B4b (the depth of each
+# trailing update; CHOL_PANEL in csrc/shifted_chol.cu), the tile width of
+# every kernel and its sub-block width (CHOL_TILE and CHOL_SUB in
+# csrc/tile_ops.cuh); each must equal the constant of the same name.
 CHOL_PANEL = 256
 CHOL_TILE = 128
 CHOL_SUB = 32
@@ -58,9 +62,9 @@ def reset_launches() -> None:
 def column_cholesky(a: torch.Tensor) -> torch.Tensor:
     """Unblocked right-looking Cholesky of [K, b, b] by b column steps
     (lower triangle read, pivot d2·rsqrt(d2): a non-PD lane is NaN, never
-    ±inf) — the kernels' diagonal-tile sweep.  Identity rows after the
-    real ones stay exactly inert, so the real block's bits do not depend
-    on b."""
+    ±inf): the small-pad route's Cholesky on the CPU
+    (``core/linalg.small_cholesky``).  Identity rows after the real ones
+    stay exactly inert, so the real block's bits do not depend on b."""
     a = torch.tril(a)
     for j in range(a.shape[-1]):
         d2 = a[:, j, j]
@@ -70,17 +74,6 @@ def column_cholesky(a: torch.Tensor) -> torch.Tensor:
         a[:, j + 1:, j] = col
         a[:, j + 1:, j + 1:] -= torch.tril(col[:, :, None] * col[:, None, :])
     return a
-
-
-def _invert_tile(l: torch.Tensor) -> torch.Tensor:
-    """[K, b, b] lower-triangular inverse by row forward substitution."""
-    b = l.shape[-1]
-    x = torch.zeros_like(l)
-    eye = torch.eye(b, dtype=l.dtype, device=l.device)
-    for r in range(b):
-        s = torch.einsum("km,kmc->kc", l[:, r, :r], x[:, :r, :])
-        x[:, r, :] = (eye[r] - s) / l[:, r, r, None]
-    return x
 
 
 def _sub_factor(a: torch.Tensor):
@@ -100,13 +93,21 @@ def _sub_factor(a: torch.Tensor):
         a[:, j + 1:, j + 1:].baddbmm_(col[:, 1:, None], col[:, None, 1:],
                                       alpha=-1.0)
     a = torch.tril(a)
+    return a, _sub_inverse(a, inv)
+
+
+def _sub_inverse(a: torch.Tensor, rdiag: torch.Tensor) -> torch.Tensor:
+    """Y = L⁻¹ of [K, s, s] lower-triangular blocks (lower triangle read)
+    row by row, rdiag [K, s] the reciprocals of L's diagonal:
+    Y[r] = (e_r − L[r, :r] Y[:r]) · rdiag[r]."""
+    s = a.shape[-1]
     y = torch.zeros_like(a)
     eye = torch.eye(s, dtype=a.dtype, device=a.device)
     for r in range(s):
         e_r = eye[r].expand(a.shape[0], 1, s)
         t = torch.baddbmm(e_r, a[:, r:r + 1, :r], y[:, :r, :], alpha=-1.0)
-        torch.mul(t[:, 0], inv[:, r, None], out=y[:, r, :])
-    return a, y
+        torch.mul(t[:, 0], rdiag[:, r, None], out=y[:, r, :])
+    return y
 
 
 def _tile_factor(a: torch.Tensor):
@@ -128,14 +129,38 @@ def _tile_factor(a: torch.Tensor):
             a[:, c1:, c0:c1] = lr
             a[:, c1:, c1:].baddbmm_(lr, lr.mT, alpha=-1.0)
     a = torch.tril(a)
-    w = CHOL_SUB
+    return a, _invert_pairs(a, x, CHOL_SUB)
+
+
+def _invert_pairs(a: torch.Tensor, x: torch.Tensor, w: int) -> torch.Tensor:
+    """x ← L⁻¹ of the [K, b, b] lower-triangular a, given the inverses of
+    its w-wide diagonal blocks in x: 2×2 block recursion, for w, 2w, …,
+    X_BA = −X_BB (L_BA X_AA) over the pairs A = [lo, lo + w),
+    B = [lo + w, min(lo + 2w, b)).  Reads a below its w-wide diagonal
+    blocks only; x in place."""
+    b = a.shape[-1]
     while w < b:
         for lo in range(0, b - w, 2 * w):
             mid, hi = lo + w, min(lo + 2 * w, b)
             t = a[:, mid:hi, lo:mid] @ x[:, lo:mid, lo:mid]
             x[:, mid:hi, lo:mid] = -(x[:, mid:hi, mid:hi] @ t)
         w *= 2
-    return a, x
+    return x
+
+
+def _tile_inverse(l: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ of [K, b, b] lower-triangular tiles (lower triangle read), as
+    B3's ``leaf_kernel`` computes it at b = CHOL_TILE: each CHOL_SUB block
+    by row substitution with the reciprocal of its diagonal, then the 2×2
+    block recursion inside the tile."""
+    l = torch.tril(l)
+    x = torch.zeros_like(l)
+    for c0 in range(0, l.shape[-1], CHOL_SUB):
+        c1 = min(c0 + CHOL_SUB, l.shape[-1])
+        blk = l[:, c0:c1, c0:c1]
+        x[:, c0:c1, c0:c1] = _sub_inverse(
+            blk, 1.0 / torch.diagonal(blk, dim1=-2, dim2=-1))
+    return _invert_pairs(l, x, CHOL_SUB)
 
 
 def _tile_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -219,19 +244,26 @@ def logdet_q_ref(kmat, resid):
 
 
 def tri_inverse_ref(lmat):
-    """Plain version of B3: X = L⁻¹ by block forward substitution."""
+    """Plain version of B3: X = L⁻¹ (lower triangle of lmat read), by 2×2
+    block recursion over CHOL_TILE-wide tiles: every diagonal tile by
+    ``_tile_inverse``, then X_BA = −X_BB (L_BA X_AA) for w = 1, 2, 4, …
+    tiles.  A ragged n is padded with identity to whole tiles, as the
+    kernel's last tile is."""
     _check_square(lmat, "lmat")
-    n = lmat.shape[-1]
-    x = torch.zeros_like(lmat)
-    for r0 in range(0, n, PANEL):
-        r1 = min(r0 + PANEL, n)
-        xii = _invert_tile(torch.tril(lmat[:, r0:r1, r0:r1]))
-        x[:, r0:r1, r0:r1] = xii
-        if r0 > 0:
-            # X_kj = 0 for k < j, so the full product is Σ_{j≤k<i} L_ik X_kj
-            acc = lmat[:, r0:r1, :r0] @ x[:, :r0, :r0]
-            x[:, r0:r1, :r0] = -(xii @ acc)
-    return x
+    k_batch, n, _ = lmat.shape
+    nb = -(-n // CHOL_TILE)
+    npad = nb * CHOL_TILE
+    l = torch.eye(npad, dtype=lmat.dtype, device=lmat.device).repeat(
+        k_batch, 1, 1)
+    l[:, :n, :n] = torch.tril(lmat)
+    tiles = [slice(i * CHOL_TILE, (i + 1) * CHOL_TILE) for i in range(nb)]
+    xt = _tile_inverse(torch.stack([l[:, t, t] for t in tiles], 1).reshape(
+        k_batch * nb, CHOL_TILE, CHOL_TILE)).reshape(
+            k_batch, nb, CHOL_TILE, CHOL_TILE)
+    x = torch.zeros_like(l)
+    for i, t in enumerate(tiles):
+        x[:, t, t] = xt[:, i]
+    return _invert_pairs(l, x, CHOL_TILE)[:, :n, :n].contiguous()
 
 
 # ------------------------------------------------------------------ checks

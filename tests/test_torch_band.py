@@ -245,6 +245,35 @@ def test_cr_plain_version_matches_pallas_kernel_and_xla_recursion(rng):
         np.testing.assert_allclose(q.numpy(), np.asarray(want_q), rtol=1e-4)
 
 
+@pytest.mark.parametrize("n_real", [1, 3, 5, 6])
+def test_cr_skips_inert_blocks_past_n_real(rng, n_real):
+    """m = 8 blocks of which the first ``n_real`` are real and the rest
+    inert (a = I, bb = 0, r = 0, the coupling into the first inert block
+    0): the plain version with ``n_real`` (no work on the inert blocks)
+    against the Pallas kernel in interpret mode and the XLA recursion on
+    the same input (ld 1e-5, q 1e-4 relative, :212-223's tolerances) and
+    bit for bit equal to itself without ``n_real``."""
+    a, bb, r = _cr_case(rng, 3, 8, 16)
+    a[:, n_real:] = torch.eye(16)
+    bb[:, n_real - 1:] = 0.0
+    r[:, 16 * n_real:] = 0.0
+    ld, q = band.cr_logdet_q(a, bb, r, n_real=n_real)
+    ld_all, q_all = band.cr_logdet_q(a, bb, r)
+    assert torch.equal(ld, ld_all) and torch.equal(q, q_all)
+    aj, bj, rj = (jnp.asarray(t.numpy()) for t in (a, bb, r))
+    ld_k, q_k = jband.cr_logdet_q_pallas(aj, bj, rj, interpret=True)
+    ld_x, q_x = jband._cr_body(aj, bj, rj.reshape(3, 8, 16), 1,
+                               jband._chol_small)
+    for want_ld, want_q in ((ld_k, q_k), (ld_x, q_x)):
+        np.testing.assert_allclose(ld.numpy(), np.asarray(want_ld),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(q.numpy(), np.asarray(want_q), rtol=1e-4)
+    with pytest.raises(ValueError):
+        band.cr_logdet_q(a, bb, r, n_real=9)
+    with pytest.raises(ValueError):
+        band.cr_logdet_q(a, bb, r, n_real=0)
+
+
 def test_cr_nan_lane_inert_blocks_and_single_level(rng):
     """A non-PD lane gives NaN in its own ld and q only; inert identity
     blocks (a = I, bb = 0, r = 0) padding m = 4 to m = 8 change nothing,

@@ -7,13 +7,15 @@ K = M + diag(d) assembled in float32, the matrix B1/B2 factor through the
 shift, and parametrise the shared tests over the two forms.  On a CPU
 tensor each
 wrapper runs its plain PyTorch version, which follows the CUDA kernel's
-blocked schedule (256-wide panels, CHOL_PANEL, factored by 128-wide
-tiles, the diagonal tile by 32-column sub-blocks, ragged last tile).  Here
-those run
+blocked schedule (B1-B4b: 256-wide panels, CHOL_PANEL, factored by
+128-wide tiles, the diagonal tile by 32-column sub-blocks, ragged last
+tile; B3: 2×2 block recursion over 128-wide tiles).  Here those run
 against the Pallas kernels in interpret mode at ``block=128, sub=32`` —
 as ``tests/test_pallas_gp.py`` runs them — and against float64 numpy.
 Tolerances are the Pallas tests' own: ld 2e-4, q 2e-3, L 2e-4, X 3e-4.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,10 @@ from spearmint_tpu.ops.pallas_gp import (
     tri_inverse_pallas,
 )
 from spearmint_tpu_torch.core import linalg as tlin
+from spearmint_tpu_torch.core.likelihood import (
+    _effective_jitter,
+    unit_cov_matrix,
+)
 from spearmint_tpu_torch.ops import gp_kernels as gk
 
 torch.set_num_threads(1)
@@ -253,6 +259,116 @@ def test_every_small_pad_factors(n, form):
     np.testing.assert_allclose(q.numpy(), q0, rtol=1e-4)
     np.testing.assert_allclose(lmat.numpy(), l0, atol=1e-4)
     np.testing.assert_allclose(x.numpy(), np.linalg.inv(l0), atol=1e-4)
+
+
+# B3 at every width the tests above give it, and at five tiles (640: the
+# recursion's top level pairs four tiles with one).  Pallas takes whole
+# 128-row blocks, so each factor is padded with identity to one (its
+# inverse is the padded inverse's leading block); the Pallas results are
+# computed once per padded width, every factor of that width a lane.
+B3_WIDTHS = [16, 20, 28, 56, 64, 65, 100, 127, 128, 129, 136, 160, 200,
+             257, 40, 256, 288, 640]
+
+
+def _b3_factor(n):
+    m, d, r = _case(1, n, seed=100 + n)
+    return gk.shifted_factor_logdet_q(*_t(m, d, r))[2][0].numpy()
+
+
+@functools.cache
+def _b3_pallas(npad):
+    widths = [n for n in B3_WIDTHS if -(-n // 128) * 128 == npad]
+    lanes = np.stack([np.eye(npad, dtype=np.float32) for _ in widths])
+    for i, n in enumerate(widths):
+        lanes[i, :n, :n] = _b3_factor(n)
+    x = np.asarray(tri_inverse_pallas(jnp.asarray(lanes), **PALLAS))
+    return {n: x[i, :n, :n] for i, n in enumerate(widths)}
+
+
+@pytest.mark.parametrize("n", B3_WIDTHS)
+def test_b3_plain_matches_pallas_at_every_width(n):
+    """B3's plain version (2×2 block recursion over 128-wide tiles) against
+    the Pallas kernel in interpret mode at its tests' tolerance (3e-4) and
+    against the float64 inverse (1e-4), with junk above the diagonal;
+    exact zeros above the diagonal."""
+    lmat = _b3_factor(n)
+    junk = lmat + np.triu(np.full_like(lmat, 5.0), 1)
+    x = gk.tri_inverse(torch.tensor(junk[None]))[0].numpy()
+    np.testing.assert_allclose(x, _b3_pallas(-(-n // 128) * 128)[n],
+                               rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(
+        x, np.linalg.inv(lmat.astype(np.float64)), atol=1e-4)
+    assert float(np.abs(np.triu(x, 1)).max()) == 0.0
+
+
+def test_c3_unshifted_factor_is_as_precise_as_the_reference(record_property):
+    """ROADMAP C3: is B4a's lp at the constraint GP's states further from
+    float64 than the reference's?  Constraint-like K (``unit_cov_matrix``
+    of uniform points in D = 2 at pad 1024, per-lane ls 0.15..1, amp2 = 1,
+    no noise term, padded rows identity) with the constrained preset's
+    jitter, ``_effective_jitter(5000)`` = 6.2e-4: at pad 1024's own 1e-6,
+    K rounded to float32 is indefinite in float64 from ls ≈ 0.4, so no lp
+    error exists there.  r: draws from the float64 prior, as the latents'
+    ESS proposes.  lp = −ld − q/2 against a float64 factorization of the
+    same float32 K, for (a) the port's plain version (the kernel's
+    schedule: 128-wide diagonal tiles, L_ik through their explicit
+    inverse), (b) ``logdet_q_pallas`` in interpret mode at its production
+    block for this pad (512, sub 128) and at the tests' block 128, sub 32,
+    (c) a float32 library Cholesky.  Each route's RMS, median and largest
+    error (over its finite lanes) and its count of NaN lanes go to the
+    test's properties (``--junitxml`` writes them out).
+
+    Each lane's error is float32 rounding noise that varies several-fold
+    from lane to lane and schedule to schedule, so ten lanes are compared
+    by their root-mean-square.  Pinned: (a) is finite in every lane and
+    its RMS lp error is at most twice that of (b) at block 128, sub 32
+    (the factor by which the port's kernels' lp errors have been
+    compared with each other at the constraint states); the reference
+    at its production block is NaN where (a) is finite (its 128-wide
+    sub-blocks are inverted by nilpotent squaring, which overflows at
+    these condition numbers, 1.9e5-1.4e6)."""
+    pad, n, k = 1024, 1000, 10
+    rng = np.random.RandomState(0)
+    x = np.zeros((pad, 2), np.float32)
+    x[:n] = rng.rand(n, 2)
+    mask = torch.tensor(np.arange(pad) < n)
+    ls = torch.linspace(0.15, 1.0, k)[:, None].expand(k, 2).contiguous()
+    m = unit_cov_matrix(torch.tensor(x), mask, ls)
+    m += torch.diag_embed(
+        (_effective_jitter(5000) - _effective_jitter(pad)) * mask.float())
+    kmat = (m + torch.diag_embed(torch.where(mask, 0.0, 1.0))).contiguous()
+    l64 = torch.linalg.cholesky(kmat.double())
+    r = torch.where(mask, (l64 @ torch.tensor(rng.randn(k, pad, 1)))[..., 0],
+                    0.0).float().contiguous()
+    w64 = torch.linalg.solve_triangular(l64, r.double()[..., None],
+                                        upper=False)[..., 0]
+    lp64 = (-torch.log(torch.diagonal(l64, dim1=-2, dim2=-1)).sum(-1)
+            - 0.5 * (w64 * w64).sum(-1)).numpy()
+
+    def err(ld, q):
+        lp = -np.asarray(ld, np.float64) - 0.5 * np.asarray(q, np.float64)
+        return np.abs(lp - lp64)
+
+    port = err(*gk.logdet_q(kmat, r))
+    kj, rj = jnp.asarray(kmat.numpy()), jnp.asarray(r.numpy())
+    ref_prod = err(*logdet_q_pallas(kj, rj, interpret=True))
+    ref_test = err(*logdet_q_pallas(kj, rj, **PALLAS))
+    lib_l = torch.linalg.cholesky_ex(kmat)[0]
+    lib_w = torch.linalg.solve_triangular(lib_l, r[..., None],
+                                          upper=False)[..., 0]
+    lib = err(torch.log(torch.diagonal(lib_l, dim1=-2, dim2=-1)).sum(-1),
+              (lib_w * lib_w).sum(-1))
+    for name, e in (("port", port), ("pallas_512_128", ref_prod),
+                    ("pallas_128_32", ref_test), ("library_f32", lib)):
+        f = e[np.isfinite(e)]
+        record_property(f"c3_{name}", {
+            "rms": float(np.sqrt(np.mean(f ** 2))) if f.size else None,
+            "median": float(np.median(f)) if f.size else None,
+            "max": float(f.max()) if f.size else None,
+            "nan_lanes": int((~np.isfinite(e)).sum())})
+    assert np.isfinite(port).all() and np.isfinite(ref_test).all()
+    assert np.sqrt(np.mean(port ** 2)) <= 2.0 * np.sqrt(np.mean(ref_test ** 2))
+    assert np.isnan(ref_prod).any()
 
 
 def test_shifted_rescale_matches_assembled_form():

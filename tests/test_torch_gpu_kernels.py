@@ -10,9 +10,11 @@ port's machine need not have; this file imports neither JAX nor
 ``cuda`` fixture.
 
 Each kernel (B1 ``shifted_logdet_q``, B2 ``shifted_factor_logdet_q``, B3
-``tri_inverse``, B4a ``logdet_q`` / B4b ``factor_logdet_q`` on
+``tri_inverse``, also on a factor with junk above its diagonal at
+[2, 640, 640], B4a ``logdet_q`` / B4b ``factor_logdet_q`` on
 K = M + diag(d) assembled in float32, and B5 ``cr_logdet_q``, cyclic
-reduction, at [3, 8, 16, 16] and [2, 64, 128, 128]) is held against its
+reduction, at [3, 8, 16, 16], [2, 64, 128, 128], [3, 2, 16, 16] and with
+40 real blocks of 64, ``n_real``) is held against its
 plain PyTorch version on the same card and against a float64 oracle,
 at a ragged width, at the production pad 1024 (the pad of
 ``tests/test_tpu_smoke.py``), at the pending flagship's augmented pad
@@ -379,9 +381,9 @@ def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):
     assert min(gk.launches[k] for k in path) > 0, gk.launches
 
 
-def _cr_case(k, m, b, seed):
+def _cr_case(k, m, b, seed, bad_block=2):
     """tests/test_band.py:212-223's input at [k, m, b, b], assembled, with
-    block 2 of lane 1 negated (non-PD)."""
+    block ``bad_block`` of lane 1 negated (non-PD)."""
     from spearmint_tpu_torch.ops import band
 
     rng = np.random.RandomState(seed)
@@ -394,7 +396,7 @@ def _cr_case(k, m, b, seed):
         d, s, rng.uniform(0.5, 1.5, k).astype(np.float32),
         rng.uniform(0.01, 0.1, (k, m * b)).astype(np.float32))]
     a, bb = band._cr_assemble(*args)
-    a[1, 2] = -a[1, 2]
+    a[1, bad_block] = -a[1, bad_block]
     r = torch.tensor(rng.randn(k, m * b).astype(np.float32), device="cuda")
     return a, bb, r
 
@@ -443,6 +445,82 @@ def test_cyclic_reduction_matches_plain_version_and_f64(cuda, shape):
                                torch.cat([bb, torch.zeros_like(bb)], 1),
                                torch.cat([r, torch.zeros_like(r)], 1))
     assert torch.equal(ld1, ld2) and torch.equal(q1, q2)
+
+
+def test_cyclic_reduction_skips_inert_blocks_past_n_real(cuda):
+    """The band flagship's layout, 40 real blocks of 128 padded to 64 with
+    inert ones: ``n_real=40`` (no work on the padding) gives bit for bit
+    the ld and q of ``n_real=64`` on the same input, both within the
+    file's tolerances of the plain version and of float64 on the 40 real
+    blocks; the non-PD lane is NaN in its own ld and q only."""
+    from spearmint_tpu_torch.ops import band
+
+    a, bb, r = _cr_case(3, 40, 128, seed=40)
+    bb[:, -1] = 0.0
+    k, m_real, b, _ = a.shape
+    eye = torch.eye(b, device="cuda").expand(k, 24, b, b)
+    ap = torch.cat([a, eye], 1).contiguous()
+    bbp = torch.cat([bb, torch.zeros(k, 24, b, b, device="cuda")], 1)
+    rp = torch.cat([r, torch.zeros(k, 24 * b, device="cuda")], 1)
+    band.reset_launches()
+    ld, q = band.cr_logdet_q(ap, bbp, rp, n_real=m_real)
+    ld_all, q_all = band.cr_logdet_q(ap, bbp, rp)
+    torch.cuda.synchronize()
+    assert band.launches["cr_logdet_q"] == 2
+    good = [0, 2]
+    assert torch.equal(ld[good], ld_all[good])
+    assert torch.equal(q[good], q_all[good])
+    for v in (ld, q, ld_all, q_all):
+        assert bool(torch.isnan(v[1]))
+    p_ld, p_q = band.cr_logdet_q_ref(ap, bbp, rp, n_real=m_real)
+    o_ld, o_q = _cr_f64(*(t[good].contiguous() for t in (a, bb, r)))
+    for want_ld, want_q in ((p_ld[good], p_q[good]), (o_ld, o_q)):
+        assert _rel(ld[good], want_ld) < TOL["ld"]
+        assert _rel(q[good], want_q) < TOL["q"]
+
+
+def test_cyclic_reduction_single_level_narrow_blocks(cuda):
+    """b = 16, m = 2: one level and the last block, each 16-wide block
+    padded with identity to the kernel's 128-wide tile; against the plain
+    version and float64 at the file's tolerances."""
+    from spearmint_tpu_torch.ops import band
+
+    a, bb, r = _cr_case(3, 2, 16, seed=2, bad_block=1)
+    ld, q = band.cr_logdet_q(a, bb, r)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ld[1]) and torch.isnan(q[1]))
+    good = [0, 2]
+    p_ld, p_q = band.cr_logdet_q_ref(a, bb, r)
+    o_ld, o_q = _cr_f64(*(t[good].contiguous() for t in (a, bb, r)))
+    for want_ld, want_q in ((p_ld[good], p_q[good]), (o_ld, o_q)):
+        assert _rel(ld[good], want_ld) < TOL["ld"]
+        assert _rel(q[good], want_q) < TOL["q"]
+
+
+@pytest.mark.parametrize("k_batch,n", [(2, 640), (3, 1000), (2, 1001)],
+                         ids=["five_tiles640", "ragged1000",
+                              "rows_not_float4_aligned1001"])
+def test_tri_inverse_reads_only_the_lower_triangle(cuda, k_batch, n):
+    """B3 on a factor whose upper triangle holds junk: five tiles (a
+    ragged last pair at the recursion's top level), and ragged widths.
+    Against its plain version and the float64 inverse at the file's X
+    tolerance; exact zeros above the diagonal; bit-identical to the
+    result on the clean factor."""
+    gk = cuda
+    m, d, r = _case(k_batch, n, seed=n + 1)
+    lmat = gk.shifted_factor_logdet_q(m, d, r)[2]
+    junk = lmat + torch.triu(torch.full_like(lmat, 7.0), 1)
+    x = gk.tri_inverse(junk)
+    x_clean = gk.tri_inverse(lmat)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x_clean)
+    assert float(torch.triu(x, 1).abs().max()) == 0.0
+    p_x = gk.tri_inverse_ref(junk)
+    o_x = torch.linalg.solve_triangular(
+        lmat.double(), torch.eye(n, dtype=torch.float64,
+                                 device="cuda").expand(k_batch, n, n),
+        upper=False)
+    assert _abs(x, p_x) < TOL["X"] and _abs(x, o_x) < TOL["X"]
 
 
 def test_band_mode_suggest_step_launches_b5_and_b1(cuda):
