@@ -17,7 +17,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               lane; B4a and B4b (the unshifted kernel, on K = M + diag(d)
               assembled in float32) at the same four shapes with the same
               non-PSD lanes, and all five at [2, 640, 640] (five tiles:
-              B3's recursion pairs four tiles with one); each held
+              B3's recursion pairs four tiles with one), and B1-B3 at
+              the sync harness's pad [10, 512, 512] and the per_sec
+              preset's [10, 1024, 1024], each with a non-PSD lane; each held
               against its plain PyTorch version and a float64
               ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
               events) beside the plain version, the nearest PyTorch
@@ -56,6 +58,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               Cholesky of the same float32 matrix finds indefinite; the
               per-stage seconds, and ``torch.profiler`` over one
               suggestion and over one constraint sweep;
+  7b. per_sec, per_sec_large  ``suggest_step_per_sec`` (EI per second,
+              two chain families) on bench.py ``PRESETS["per_sec"]`` (n=1000,
+              pad 1024) and ``["per_sec_large"]`` (n=5000, pad 5120) as
+              ``time_tpu_per_sec`` sets them up (log durations 2·x0 +
+              0.1·randn), 10 chains, 2048 candidates, one warm-up and
+              three timed reps: finite EI/sec, B1, B2 and B3 launched, and
+              n_ok equal to 10 less the samples whose value or duration
+              matrix a float64 Cholesky of the same float32 matrix finds
+              indefinite; the per-stage seconds and the median;
   8. band     the flagship shape with band mode on
               (``SuggestConfig(band_joint=True)``), one warm-up and three
               timed reps: n_ok == 10 on every rep, finite EI, B5 and B1
@@ -77,7 +88,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               mcmc_iters=10, burnin=5) at 2100 completions (pad 2560), one
               ``next``: an index or an (ei, x) tuple, band mode on, B5
               launched and n_ok > 0;
- 12. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
+ 12. harness_branin, harness_per_sec  the port's sync harness
+              (``harness.sync.run``) on a copy of examples/braninpy, its
+              2000-point Sobol grid seeded with 450 completions through
+              the port's ExperimentGrid (Branin values, durations
+              exp(2·x0) s: pad 512), then 4 suggestions of GPEIOptChooser
+              and 3 of GPEIperSecChooser, each job run by ``job_runner``:
+              every job complete, the best-so-far and state files written
+              (the per-sec one with both families' keys), n_ok > 0, and
+              B1, B2 and B3 launched on every suggestion (the launches of
+              each suggestion are recorded);
+ 13. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
               its device time by kernel name (trailing, diagonal, panel,
               copy).
 
@@ -144,6 +165,16 @@ BAND_CHOOSER_BLOCKS = 20
 # bench.py PRESETS["constrained"], as time_tpu_constrained sets it up
 CONSTRAINED = dict(n=5000, d=2, chains=10, cands=2048, grid_subset=5,
                    lbfgs_iters=10, p_invalid=0.25)
+# bench.py PRESETS["per_sec"] and ["per_sec_large"], as time_tpu_per_sec
+# sets them up
+PER_SEC = dict(n=1000, d=2, chains=10, cands=2048, grid_subset=5,
+               lbfgs_iters=10)
+PER_SEC_LARGE = dict(PER_SEC, n=5000)
+# the sync harness on examples/braninpy: completions seeded past 448 put
+# the pad at 512, the first bucket the kernels take (core/linalg.kernel_ok)
+HARNESS = dict(grid_size=2000, grid_seed=1, seeded=450)
+HARNESS_ARGS = ("chains=10,mcmc_iters=10,burnin=20,grid_subset=5,"
+                "lbfgs_iters=10,seed=0,device=cuda")
 
 
 T_START = time.perf_counter()
@@ -758,6 +789,10 @@ def check_kernels(torch, gk):
             ("five_tiles", 2, 640, 4, None)):
         hold_case(torch, gk, case, k, n, seed, nan_lane)
         hold_case_b4(torch, gk, case, k, n, seed, nan_lane)
+    # the sync harness's pad and the per_sec preset's (B1-B3 only: no path
+    # at these pads runs B4)
+    hold_case(torch, gk, "harness_pad_nan_lane", 10, 512, 5, 3)
+    hold_case(torch, gk, "per_sec_pad_nan_lane", 10, 1024, 6, 7)
 
     # timing at the flagship shape: kernel, plain version, library calls
     n, k = 5120, 10
@@ -1149,26 +1184,28 @@ def constrained_problem():
             np.ones(cands, bool))
 
 
-def constrained_witness(torch, xp, vmask, omask, samples, c_samples):
-    """Per sample, the float64 Cholesky info of the very float32 matrices
-    the two caches hand kernel B2: the value GP's M + diag(dadd/amp2)
-    (dadd = noise on valid rows, 1 on the others) and the constraint GP's
-    M + diag(where(observed, 0, 1)/amp2).  A nonzero info is the witness
-    that the float32 matrix is indefinite."""
+def f64_info(torch, x, mask, ls, amp2, dadd):
+    """Per sample, the float64 Cholesky info of the very float32 matrix a
+    cache hands kernel B2, M + diag(dadd/amp2); nonzero witnesses that
+    the float32 matrix is indefinite."""
     from spearmint_tpu_torch.core.likelihood import unit_cov_matrix
 
+    mat = unit_cov_matrix(x, mask, ls) + torch.diag_embed(dadd / amp2[:, None])
+    return torch.linalg.cholesky_ex(mat.double()).info.tolist()
+
+
+def constrained_witness(torch, xp, vmask, omask, samples, c_samples):
+    """Per sample, ``f64_info`` of the matrices the two caches factor: the
+    value GP's (dadd = noise on valid rows, 1 on the others) and the
+    constraint GP's (dadd = where(observed, 0, 1))."""
     x = torch.tensor(xp, device="cuda")
-    out = {}
-    for fam, mask, ls, amp2, dadd in (
-            ("value", vmask, samples.ls, samples.amp2,
-             lambda m: torch.where(m, samples.noise[:, None], 1.0)),
-            ("constraint", omask, c_samples.ls, c_samples.amp2,
-             lambda m: torch.where(m, 0.0, 1.0).expand(len(amp2), -1))):
-        m = torch.tensor(mask, device="cuda")
-        mat = unit_cov_matrix(x, m, ls) + torch.diag_embed(
-            dadd(m) / amp2[:, None])
-        out[fam] = torch.linalg.cholesky_ex(mat.double()).info.tolist()
-        del mat
+    vm = torch.tensor(vmask, device="cuda")
+    om = torch.tensor(omask, device="cuda")
+    out = {"value": f64_info(torch, x, vm, samples.ls, samples.amp2,
+                             torch.where(vm, samples.noise[:, None], 1.0)),
+           "constraint": f64_info(
+               torch, x, om, c_samples.ls, c_samples.amp2,
+               torch.where(om, 0.0, 1.0).expand(len(c_samples.amp2), -1))}
     out["indefinite"] = [a != 0 or b != 0 for a, b in zip(out["value"],
                                                          out["constraint"])]
     return out
@@ -1249,6 +1286,92 @@ def run_constrained(torch):
                 stage_s=stages, profile=prof, constraint_sweep_profile=sweep,
                 c_ls=cons.ls.tolist(), c_amp2=cons.amp2.tolist(),
                 x_opt=res.x_opt.tolist(), acq_opt=float(res.acq_opt))
+
+
+# --------------------------------------------------------------- per_sec
+def per_sec_problem(n, d, cands):
+    """time_tpu_per_sec's set-up: bench.py's make_problem, log durations
+    2·x0 + 0.1·randn from numpy RandomState(5), padded."""
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+
+    x, y, cand = make_problem(n, d, cands)
+    log_durs = 2.0 * x[:, 0] + 0.1 * np.random.RandomState(5).randn(n)
+    pad = pad_bucket(n)
+    xp = np.zeros((pad, d), np.float32); xp[:n] = x
+    yp = np.zeros(pad, np.float32); yp[:n] = y
+    tp = np.zeros(pad, np.float32); tp[:n] = log_durs
+    return xp, yp, tp, np.arange(pad) < n, cand.astype(np.float32)
+
+
+def run_per_sec(torch, label, n, d, chains, cands, grid_subset, lbfgs_iters,
+                reps=4):
+    """EI per second on a bench.py preset: one warm-up and ``reps`` − 1
+    timed reps, each adopting the previous rep's chain states of both
+    families.  Fails unless EI/sec is finite on every rep, B1, B2 and B3
+    were launched, and every rep's n_ok equals the chains less the
+    samples whose value or duration matrix a float64 Cholesky of the same
+    float32 matrix finds indefinite.  Then one rep with stage timing."""
+    from spearmint_tpu_torch.engine.per_sec import suggest_step_per_sec
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states,
+    )
+
+    xp, yp, tp, mask, cand = per_sec_problem(n, d, cands)
+    dev = "cuda"
+    x, mt = torch.tensor(xp, device=dev), torch.tensor(mask, device=dev)
+    h = init_chain_states(torch.tensor(yp, device=dev), mt, d, chains)
+    t = init_chain_states(torch.tensor(tp, device=dev), mt, d, chains)
+    cfg = SuggestConfig(mcmc_iters=1, grid_subset=grid_subset,
+                        lbfgs_iters=lbfgs_iters)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def step(stage_times=None):
+        return suggest_step_per_sec(
+            gen, h, t, xp, yp, tp, mask, np.zeros((4, d), np.float32),
+            np.zeros(4, bool), cand, np.ones(cands, bool), cfg, device=dev,
+            stage_times=stage_times)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, oks, witness = [], [], []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        res = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        h, t = res.hypers, res.time_hypers
+        finite = bool(torch.isfinite(res.ei_per_s).all()
+                      and torch.isfinite(res.x_opt).all()
+                      and torch.isfinite(res.ei_opt))
+        if not finite or res.ei_per_s.shape != (cands,):
+            fail(f"{label} rep {i}: finite={finite} "
+                 f"shape={tuple(res.ei_per_s.shape)}")
+        oks.append(int(res.n_ok))
+        w = {fam: f64_info(torch, x, mt, sm.ls, sm.amp2,
+                           torch.where(mt, sm.noise[:, None], 1.0))
+             for fam, sm in (("value", res.samples),
+                             ("duration", res.time_samples))}
+        w["indefinite"] = [a != 0 or b != 0 for a, b in zip(w["value"],
+                                                           w["duration"])]
+        witness.append(w)
+    counts = launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if min(counts[k] for k in FLAGSHIP_PATH) <= 0:
+        fail(f"{label}: a kernel of the path was never launched: {counts}")
+    for i, (n_ok, w) in enumerate(zip(oks, witness)):
+        expected = chains - sum(w["indefinite"])
+        if n_ok != expected or n_ok < 1:
+            fail(f"{label} rep {i}: n_ok={n_ok}, expected {expected}; {w}")
+    stages = {}
+    step(stages)
+    return dict(phase=label, n=n, pad=len(yp), chains=chains, cands=cands,
+                reps=reps, latency_s=times,
+                median_s=float(np.median(times[1:])), launches=counts,
+                n_ok=oks, ei_per_s_finite=True, witness=witness,
+                max_memory_allocated=peak_bytes, stage_s=stages,
+                time_amp2=t.amp2.tolist(), x_opt=res.x_opt.tolist(),
+                ei_opt=float(res.ei_opt))
 
 
 # --------------------------------------------------------------- band
@@ -1820,6 +1943,105 @@ def run_constrained_chooser(torch):
     return rec
 
 
+# --------------------------------------------------------------- harness
+class CountedChooser:
+    """A chooser whose ``next`` records the kernel launches it made."""
+
+    def __init__(self, chooser):
+        self.chooser = chooser
+        self.per_call = []
+
+    def next(self, *args):
+        before = launch_counts()
+        out = self.chooser.next(*args)
+        after = launch_counts()
+        self.per_call.append({k: after[k] - before[k] for k in after})
+        return out
+
+
+def run_harness(torch, label, chooser_name, suggestions):
+    """The port's sync harness (``harness.sync.run``) on a copy of
+    examples/braninpy: a 2000-point Sobol grid (seed 1) whose first 450
+    points are marked complete through the port's ExperimentGrid, with
+    their Branin values and durations exp(2·x0) s, so the pad is 512;
+    then ``suggestions`` suggestions by ``chooser_name``, each job run
+    by the harness's ``job_runner``.  Fails unless every job completed,
+    the best-so-far file and the state file were written, B1, B2 and B3
+    were launched on every suggestion and every n_ok > 0.  The harness's
+    and the objective's prints go to harness.log in the experiment."""
+    import contextlib
+    import shutil
+    from argparse import Namespace
+
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+    from spearmint_tpu_torch.harness import loop, sync
+    from spearmint_tpu_torch.store import codec
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    hcfg = HARNESS
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as expt:
+        for f in ("config.pb", "branin.py"):
+            shutil.copy(os.path.join(repo, "examples", "braninpy", f), expt)
+        config = codec.load_experiment(os.path.join(expt, "config.pb"))
+        grid = loop.open_grid(expt, config, hcfg["grid_size"],
+                              hcfg["grid_seed"])
+        for i in range(hcfg["seeded"]):
+            u = grid.grid[i]
+            grid.set_complete(i, branin_unit(u), math.exp(2.0 * u[0]))
+        chooser = CountedChooser(get_chooser(chooser_name, expt,
+                                             HARNESS_ARGS))
+        options = Namespace(grid_size=hcfg["grid_size"],
+                            grid_seed=hcfg["grid_seed"],
+                            max_finished_jobs=hcfg["seeded"] + suggestions)
+        t1 = time.perf_counter()
+        with open(os.path.join(expt, "harness.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            best_val, best_id = sync.run(expt, config, chooser, options)
+        seconds = time.perf_counter() - t1
+        grid = loop.open_grid(expt, config, hcfg["grid_size"],
+                              hcfg["grid_seed"])
+        run_ids = [int(i) for i in grid.get_complete()
+                   if i >= hcfg["seeded"]]
+        jobs = [codec.load_job(codec.job_file_for(expt, i)) for i in run_ids]
+        events = chooser.chooser.events.read()
+        state = os.path.join(expt, f"{chooser_name}_state.npz")
+        keys = []
+        if os.path.exists(state):
+            with np.load(state) as z:
+                keys = sorted(z.files)
+        best_file = os.path.exists(os.path.join(expt, loop.BEST_FILE))
+        rec = dict(
+            phase=label, chooser=chooser_name, seeded=hcfg["seeded"],
+            pad=pad_bucket(hcfg["seeded"] + suggestions - 1),
+            suggestions=suggestions, run_jobs=run_ids,
+            job_status=[j.status for j in jobs],
+            job_duration_s=[j.duration for j in jobs],
+            n_broken=len(grid.get_broken()),
+            n_ok=[e["n_ok"] for e in events if e["kind"] == "suggest"],
+            latency_s=[e["latency_s"] for e in events
+                       if e["kind"] == "suggest"],
+            launches_per_suggestion=chooser.per_call,
+            launches=launch_counts(), best=best_val, best_job=best_id,
+            best_file=best_file, state_keys=keys, harness_s=seconds,
+            seconds=time.perf_counter() - t0)
+    emit(rec)
+    want_keys = {"ls", "amp2", "noise", "mean"} | (
+        {"time_ls", "time_amp2", "time_noise", "time_mean"}
+        if chooser_name == "GPEIperSecChooser" else set())
+    if (len(run_ids) != suggestions or rec["n_broken"]
+            or rec["job_status"] != ["complete"] * suggestions
+            or not best_file or not want_keys <= set(keys)
+            or len(rec["n_ok"]) != suggestions or min(rec["n_ok"]) <= 0
+            or len(chooser.per_call) != suggestions
+            or min(c[k] for c in chooser.per_call
+                   for k in FLAGSHIP_PATH) <= 0):
+        fail(f"{label}: {rec}")
+    return rec
+
+
 def main(argv) -> int:
     import torch
 
@@ -1871,6 +2093,10 @@ def main(argv) -> int:
     emit(pend)
     cons = run_constrained(torch)
     emit(cons)
+    per_sec = run_per_sec(torch, "per_sec", **PER_SEC)
+    emit(per_sec)
+    per_sec_large = run_per_sec(torch, "per_sec_large", **PER_SEC_LARGE)
+    emit(per_sec_large)
     band_rec = run_suggest(torch, "band", 4, profile=True,
                            band_joint=True, **FLAGSHIP)
     emit(band_rec)
@@ -1880,7 +2106,14 @@ def main(argv) -> int:
              "branin_chooser": run_chooser(torch)["launches"],
              "constrained_chooser": run_constrained_chooser(
                  torch)["launches"],
-             "band_chooser": run_band_chooser()["launches"]}
+             "band_chooser": run_band_chooser()["launches"],
+             "per_sec": per_sec["launches"],
+             "per_sec_large": per_sec_large["launches"],
+             "harness_branin": run_harness(
+                 torch, "harness_branin", "GPEIOptChooser", 4)["launches"],
+             "harness_per_sec": run_harness(
+                 torch, "harness_per_sec", "GPEIperSecChooser",
+                 3)["launches"]}
     b1_split(torch, gk, records["B1"])
 
     src = "spearmint_tpu_torch/ops/csrc/"

@@ -3,8 +3,10 @@
 A second package beside the JAX one (``spearmint_tpu/``, the reference):
 the same fully-Bayesian GP-EI suggestion (slice-sampled Matérn-5/2 ARD
 hyperparameters, EI averaged over samples, pending-job fantasies, batched
-projected L-BFGS) and its constrained form (a probit latent-GP classifier
-of NaN-valued violations weighting EI), written in PyTorch for one NVIDIA
+projected L-BFGS), its constrained form (a probit latent-GP classifier of
+NaN-valued violations weighting EI) and its cost-aware form (EI per
+expected second, from a second GP over log job durations), with the
+experiment store and the sync harness, written in PyTorch for one NVIDIA
 H100.  The Cholesky-family Pallas kernels of these paths are CUDA C++
 kernels written by hand for ``sm_90a`` (``ops/csrc``), with plain PyTorch
 versions beside them that serve CPU tensors (``ops/gp_kernels``).
@@ -13,10 +15,16 @@ Layout mirrors the JAX package:
   core/     kernels, masked linear algebra, GP log-marginal, priors
   mcmc/     batched slice sampler, elliptical slice sampler, chain states
   acquire/  EI, fantasization, batched L-BFGS-B
-  engine/   the suggestion step, the constrained suggestion step
+  engine/   the suggestion step, the constrained and the EI-per-second
+            suggestion steps
   ops/      the CUDA kernels, their plain versions and their build
-  choosers/ GPEIOptChooser, GPEIChooser, GPConstrainedEIChooser
-  store/ utils/  locking, argument parsing, event log
+  choosers/ GPEIOptChooser, GPEIChooser, GPConstrainedEIChooser,
+            GPEIperSecChooser
+  store/    the Sobol grid, unit ↔ typed parameters, the config and job
+            codec, ExperimentGrid (the on-disk experiment) and the locker
+  harness/  the job runner, the shared suggest loop and the sync harness
+            (``python -m spearmint_tpu_torch.harness.sync``)
+  utils/    argument parsing, event log, device selection
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is asked for; with
 no card and no such request they raise.  The package imports neither

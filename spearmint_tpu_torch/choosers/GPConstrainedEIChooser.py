@@ -161,10 +161,5 @@ class GPConstrainedEIChooser(GPEIOptChooser):
                              chooser=type(self).__name__, n_obs=int(n))
             return int(candidates[0])
 
-        acq_opt = float(res.acq_opt)
-        best_cand_acq = float(res.best_cand_acq)
-        x_opt = res.x_opt.detach().cpu().numpy().astype(np.float64)
-        if self.optimize and acq_opt > best_cand_acq and np.all(
-                np.isfinite(x_opt)):
-            return float(acq_opt), x_opt
-        return int(candidates[int(res.best_cand)])
+        return self._choose(candidates, res.best_cand, res.best_cand_acq,
+                            res.x_opt, res.acq_opt)

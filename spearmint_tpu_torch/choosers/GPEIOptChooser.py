@@ -167,6 +167,44 @@ class GPEIOptChooser:
             hypers = sample_hypers(gen, hypers, x, y, mask, mcfg)
         return hypers
 
+    def _pad_pending_and_candidates(self, grid, pending, candidates, pad):
+        """Pending points at ``pend_pad(pad, P)`` and candidates at their
+        bucket (at least 64), each with its mask."""
+        from spearmint_tpu_torch.core.linalg import pad_bucket, pend_pad
+
+        ndim = grid.shape[1]
+        pend = grid[pending].astype(np.float32)
+        p = pend.shape[0]
+        ppad = pend_pad(pad, p)
+        pend_p = np.zeros((ppad, ndim), np.float32)
+        pend_p[:p] = pend
+        cand = grid[candidates].astype(np.float32)
+        c = cand.shape[0]
+        cpad = pad_bucket(c, minimum=64)
+        cand_p = np.zeros((cpad, ndim), np.float32)
+        cand_p[:c] = cand
+        return pend_p, np.arange(ppad) < p, cand_p, np.arange(cpad) < c
+
+    def _refuse_obs_route(self, pad, n_pending):
+        """The JAX chooser sends this pad to the observation-sharded path
+        on several GPUs, which is not ported (ROADMAP A10)."""
+        ndev = (torch.cuda.device_count() if self.device.type == "cuda"
+                else 1)
+        if use_obs_gate(self.obs_shard_min, ndev, pad, n_pending):
+            raise NotImplementedError(
+                f"pad {pad} on {ndev} GPUs routes to the observation-"
+                "sharded path, which is not ported yet — ROADMAP A10")
+
+    def _choose(self, candidates, best_cand, best_value, x_opt, opt_value):
+        """The refined point as an ``(value, x)`` invention if it beats the
+        best candidate's value, else that candidate's grid index."""
+        x_opt = x_opt.detach().cpu().numpy().astype(np.float64)
+        opt_value = float(opt_value)
+        if (self.optimize and opt_value > float(best_value)
+                and np.all(np.isfinite(x_opt))):
+            return opt_value, x_opt
+        return int(candidates[int(best_cand)])
+
     def _emit_suggest(self, latency, n_obs, n_pending, n_cand, **extra):
         self.events.emit(
             "suggest", chooser=type(self).__name__,
@@ -179,7 +217,7 @@ class GPEIOptChooser:
         if len(complete) < 2:
             return int(candidates[0])
 
-        from spearmint_tpu_torch.core.linalg import pad_bucket, pend_pad
+        from spearmint_tpu_torch.core.linalg import pad_bucket
         from spearmint_tpu_torch.engine.suggest import (
             SuggestConfig, init_chain_states, suggest_step,
         )
@@ -194,9 +232,6 @@ class GPEIOptChooser:
             comp, vals = comp[finite], vals[finite]
             if comp.shape[0] < 2:
                 return int(candidates[0])
-        pend = grid[pending].astype(np.float32)
-        cand = grid[candidates].astype(np.float32)
-
         n = comp.shape[0]
         pad = pad_bucket(n)
         if self.max_obs_pad:
@@ -208,25 +243,10 @@ class GPEIOptChooser:
         yp = np.zeros(pad, np.float32); yp[:n] = vals
         mask = np.arange(pad) < n
 
-        p = pend.shape[0]
-        ppad = pend_pad(pad, p)
-        pend_p = np.zeros((ppad, ndim), np.float32)
-        pend_p[:p] = pend
-        pend_mask = np.arange(ppad) < p
-
-        c = cand.shape[0]
-        cpad = pad_bucket(c, minimum=64)
-        cand_p = np.zeros((cpad, ndim), np.float32)
-        cand_p[:c] = cand
-        cand_mask = np.arange(cpad) < c
-
-        ndev = (torch.cuda.device_count() if self.device.type == "cuda"
-                else 1)
-        use_obs = use_obs_gate(self.obs_shard_min, ndev, pad, p)
-        if use_obs:
-            raise NotImplementedError(
-                f"pad {pad} on {ndev} GPUs routes to the observation-"
-                "sharded path, which is not ported yet — ROADMAP A10")
+        pend_p, pend_mask, cand_p, cand_mask = (
+            self._pad_pending_and_candidates(grid, pending, candidates, pad))
+        p, c = len(pending), len(candidates)
+        self._refuse_obs_route(pad, p)
 
         dev = self.device
         xt = torch.as_tensor(xp, device=dev)
@@ -256,7 +276,8 @@ class GPEIOptChooser:
             n_fantasies=self.pending_samples,
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
-            band_joint=band_gate(self.band_joint_min, pad, use_obs, dev),
+            # use_obs is False: that route was refused above
+            band_joint=band_gate(self.band_joint_min, pad, False, dev),
         )
         t0 = time.perf_counter()
         res = suggest_step(gen, self._hypers, xt, yt, mt, pend_p, pend_mask,
@@ -287,11 +308,5 @@ class GPEIOptChooser:
                              chooser=type(self).__name__, n_obs=int(n))
             return int(candidates[0])
 
-        best_cand_ei = float(res.best_cand_ei)
-        ei_opt = float(res.ei_opt)
-        x_opt = res.x_opt.detach().cpu().numpy().astype(np.float64)
-        # take the optimized point only if it beats the best grid EI
-        if (self.optimize and ei_opt > best_cand_ei
-                and np.all(np.isfinite(x_opt))):
-            return float(ei_opt), x_opt
-        return int(candidates[int(res.best_cand)])
+        return self._choose(candidates, res.best_cand, res.best_cand_ei,
+                            res.x_opt, res.ei_opt)

@@ -2,15 +2,18 @@
 
 JAX counterpart: ``spearmint_tpu/choosers/__init__.py``.  Same protocol:
 every chooser module exposes ``init(expt_dir, arg_string) -> chooser``.
-The port holds the two GP-EI choosers and the constrained one so far; the
-others are still to port (ROADMAP A7, A9).
+The port holds the GP-EI choosers (GPEIOptChooser, GPEIChooser), the
+constrained one and the cost-aware one (GPEIperSecChooser); the numpy-only
+choosers (Random, Sequential, Grid, RandomForestEI) are still to port
+(ROADMAP A9b).
 """
 
 from __future__ import annotations
 
 import importlib
 
-_KNOWN = ("GPEIOptChooser", "GPEIChooser", "GPConstrainedEIChooser")
+_KNOWN = ("GPEIOptChooser", "GPEIChooser", "GPConstrainedEIChooser",
+          "GPEIperSecChooser")
 
 
 def get_chooser(name: str, expt_dir: str, arg_string: str = ""):

@@ -2,10 +2,12 @@
 
 Both packages' choosers keep the chains' hyperparameters in
 ``<Chooser>_state.npz`` under the keys ``mean, amp2, noise, ls`` (leading
-chains axis), and the constrained chooser its constraint model under
-``c_ls, c_amp2, c_ff``.  These functions turn such arrays into the port's
-``GPHypers`` / ``ConstraintState`` and back, so an experiment written by
-either package resumes under the other.  No JAX counterpart.
+chains axis), the constrained chooser its constraint model under
+``c_ls, c_amp2, c_ff``, and the cost-aware chooser its duration GP under
+``time_mean, time_amp2, time_noise, time_ls``.  These functions turn such
+arrays into the port's ``GPHypers`` / ``ConstraintState`` and back, so an
+experiment written by either package resumes under the other.  No JAX
+counterpart.
 """
 
 from __future__ import annotations
@@ -19,16 +21,19 @@ from spearmint_tpu_torch.engine.constrained import ConstraintState
 _CONSTRAINT_KEYS = {"ls": "c_ls", "amp2": "c_amp2", "ff": "c_ff"}
 
 
-def hypers_from_numpy(arrays, device) -> GPHypers:
-    """{mean, amp2, noise: [chains], ls: [chains, D]} → GPHypers on device."""
+def hypers_from_numpy(arrays, device, prefix: str = "") -> GPHypers:
+    """{mean, amp2, noise: [chains], ls: [chains, D]}, each key after
+    ``prefix`` (``time_`` for the duration GP), → GPHypers on device."""
     return GPHypers(*(
-        torch.as_tensor(np.asarray(arrays[k], np.float32), device=device)
+        torch.as_tensor(np.asarray(arrays[prefix + k], np.float32),
+                        device=device)
         for k in GPHypers._fields))
 
 
-def hypers_to_numpy(hypers: GPHypers) -> dict:
-    """GPHypers → {mean, amp2, noise, ls} as float32 numpy arrays."""
-    return {k: v.detach().cpu().numpy().astype(np.float32)
+def hypers_to_numpy(hypers: GPHypers, prefix: str = "") -> dict:
+    """GPHypers → {mean, amp2, noise, ls}, each key after ``prefix``, as
+    float32 numpy arrays."""
+    return {prefix + k: v.detach().cpu().numpy().astype(np.float32)
             for k, v in hypers._asdict().items()}
 
 

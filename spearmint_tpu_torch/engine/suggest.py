@@ -150,6 +150,32 @@ def _value_caches(x, y, mask, flat: GPHypers, config: SuggestConfig):
         for sl in _groups(flat.mean.shape[0], config.chain_chunk)])
 
 
+def _pending_caches(gen, x, y, mask, pend, pend_mask, flat: GPHypers,
+                    config: SuggestConfig):
+    """The value caches of a suggestion: with pending jobs, ``n_fantasies``
+    fantasized outcomes per sample over the augmented data (obs ∪ pend)
+    sharing one factorization; without, ``_value_caches``.  Returns
+    (cache, x_all, mask_all), the data the cache's EI reads."""
+    if not config.has_pending:
+        return _value_caches(x, y, mask, flat, config), x, mask
+    s = flat.mean.shape[0]
+    x_all = torch.cat([x, pend], 0)
+    mask_all = torch.cat([mask, pend_mask], 0)
+    n_fant = config.n_fantasies
+    draws = torch.randn(s, n_fant, pend.shape[0], generator=gen,
+                        dtype=x.dtype, device=x.device)
+    caches = []
+    for sl in _groups(s, config.chain_chunk):
+        hs = _take(flat, sl)
+        fants = fantasize_batch(draws[sl], x, y, mask, pend, pend_mask, hs,
+                                config.kernel)                  # [g, F, P]
+        y_augs = torch.cat([y.expand(fants.shape[0], n_fant, -1), fants], -1)
+        caches.append(ei_mod.make_cache_aug(
+            x_all, mask_all, y_augs, hs, config.kernel,
+            with_inverse=config.explicit_inverse))
+    return _cat_caches(caches), x_all, mask_all
+
+
 def _refine(neg_fun, cand, masked, config: SuggestConfig):
     """Batched projected L-BFGS on the unit box from the ``grid_subset``
     best candidates of ``masked``; returns (best point, its value)."""
@@ -194,26 +220,8 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
     t0 = _mark(stage_times, "mcmc", t0, dev)
 
     # ---- posterior caches (one factorization per sample) ---------------
-    caches = []
-    if config.has_pending:
-        x_all = torch.cat([x, pend], 0)
-        mask_all = torch.cat([mask, pend_mask], 0)
-        n_fant = config.n_fantasies
-        draws = torch.randn(s, n_fant, pend.shape[0], generator=gen,
-                            dtype=x.dtype, device=dev)
-        for sl in _groups(s, config.chain_chunk):
-            hs = _take(flat, sl)
-            fants = fantasize_batch(draws[sl], x, y, mask, pend, pend_mask,
-                                    hs, kernel)                 # [g, F, P]
-            y_augs = torch.cat(
-                [y.expand(fants.shape[0], n_fant, -1), fants], -1)
-            caches.append(ei_mod.make_cache_aug(
-                x_all, mask_all, y_augs, hs, kernel,
-                with_inverse=config.explicit_inverse))
-        cache = _cat_caches(caches)
-    else:
-        x_all, mask_all = x, mask
-        cache = _value_caches(x, y, mask, flat, config)
+    cache, x_all, mask_all = _pending_caches(gen, x, y, mask, pend,
+                                             pend_mask, flat, config)
     t0 = _mark(stage_times, "caches", t0, dev)
 
     # ---- EI over the candidates, NaN-robust average over samples -------

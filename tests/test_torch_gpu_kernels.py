@@ -18,7 +18,9 @@ reduction, at [3, 8, 16, 16], [2, 64, 128, 128], [3, 2, 16, 16] and with
 plain PyTorch version on the same card and against a float64 oracle,
 at a ragged width, at the production pad 1024 (the pad of
 ``tests/test_tpu_smoke.py``), at the pending flagship's augmented pad
-5248 and at [2, 1152, 1152] with a ragged real block; B1 and B4a must
+5248, at [10, 512, 512] and [10, 1024, 1024] (the sync harness's pad and
+the per_sec preset's, ten lanes) and at [2, 1152, 1152] with a ragged real
+block; B1 and B4a must
 give bit-identical ld and q from call to call.  Inputs are M = F Fᵀ/8
 (rank 8) plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors
 stay near n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4
@@ -73,9 +75,10 @@ def _abs(a, b):
 
 
 @pytest.mark.parametrize("k_batch,n", [(3, 1000), (2, 1024), (2, 5248),
-                                       (2, 1001)],
+                                       (2, 1001), (10, 512), (10, 1024)],
                          ids=["ragged1000", "pad1024", "pad5248",
-                              "rows_not_float4_aligned1001"])
+                              "rows_not_float4_aligned1001",
+                              "harness_pad512", "per_sec_pad1024"])
 def test_kernels_match_plain_version_and_f64(cuda, k_batch, n):
     gk = cuda
     m, d, r = _case(k_batch, n, seed=n)
@@ -340,6 +343,45 @@ def test_suggest_step_on_the_card_goes_through_every_kernel(cuda):
     flagship = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
     assert min(gk.launches[k] for k in flagship) > 0, gk.launches
     assert gk.launches["logdet_q"] == gk.launches["factor_logdet_q"] == 0
+
+
+def test_per_sec_step_on_the_card_goes_through_b1_to_b3(cuda):
+    """EI per second at pad 1024 (n = 1000, the per_sec preset's size):
+    both chain families' evaluations and caches run B1, B2 and B3;
+    finite EI/sec and every sample usable."""
+    from spearmint_tpu_torch.engine.per_sec import suggest_step_per_sec
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states,
+    )
+
+    gk = cuda
+    n, pad = 1000, 1024
+    rng = np.random.RandomState(5)
+    xp = np.zeros((pad, 2), np.float32); xp[:n] = rng.rand(n, 2)
+    yp = np.zeros(pad, np.float32)
+    yp[:n] = np.sin(3 * xp[:n, 0]) + 0.05 * rng.randn(n)
+    tp = np.zeros(pad, np.float32)
+    tp[:n] = 2 * xp[:n, 0] + 0.1 * rng.randn(n)
+    mask = np.arange(pad) < n
+    mt = torch.tensor(mask, device="cuda")
+    h = init_chain_states(torch.tensor(yp, device="cuda"), mt, 2, 4)
+    t = init_chain_states(torch.tensor(tp, device="cuda"), mt, 2, 4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gk.reset_launches()
+    res = suggest_step_per_sec(
+        gen, h, t, xp, yp, tp, mask, np.zeros((4, 2), np.float32),
+        np.zeros(4, bool), rng.rand(512, 2).astype(np.float32),
+        np.ones(512, bool),
+        SuggestConfig(mcmc_iters=1, grid_subset=4, lbfgs_iters=5),
+        device="cuda")
+    assert int(res.n_ok) == 4
+    assert bool(torch.isfinite(res.ei_per_s).all())
+    assert bool(torch.isfinite(res.x_opt).all())
+    flagship = ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse")
+    assert min(gk.launches[k] for k in flagship) > 0, gk.launches
+    # one cache factorization per family
+    assert gk.launches["shifted_factor_logdet_q"] == 2
 
 
 def test_constrained_step_on_the_card_adds_the_unshifted_kernel(cuda):

@@ -154,8 +154,9 @@ def test_no_quiet_fallback_to_the_cpu(tmp_path, monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports the port (the constrained engine, ESS,
-    the constrained chooser and band mode included), runs a tiny CPU
-    suggestion, a tiny CPU constrained suggestion and a tiny CPU band-mode
+    the constrained chooser, band mode, EI per second, the store and the
+    harness included), runs a tiny CPU suggestion, a tiny CPU constrained
+    suggestion, a tiny CPU band-mode suggestion and a tiny CPU EI-per-second
     suggestion, and has loaded no module of jax or of spearmint_tpu."""
     code = "\n".join([
         "import sys, numpy as np, torch",
@@ -169,6 +170,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spearmint_tpu_torch.convert",
         "import spearmint_tpu_torch.mcmc.ess",
         "import spearmint_tpu_torch.ops.band",
+        "import spearmint_tpu_torch.choosers.GPEIperSecChooser",
+        "import spearmint_tpu_torch.store.codec",
+        "import spearmint_tpu_torch.store.experiment",
+        "import spearmint_tpu_torch.store.sobol",
+        "import spearmint_tpu_torch.store.varmap",
+        "import spearmint_tpu_torch.harness.loop",
+        "import spearmint_tpu_torch.harness.runner",
+        "import spearmint_tpu_torch.harness.sync",
+        "from spearmint_tpu_torch.engine.per_sec import suggest_step_per_sec",
         "rng = np.random.RandomState(0)",
         "x = np.zeros((16, 2), np.float32); x[:6] = rng.rand(6, 2)",
         "y = np.zeros(16, np.float32); y[:6] = rng.randn(6)",
@@ -198,6 +208,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                 lbfgs_iters=3, grid_subset=2, band_joint=True),",
         "                 device='cpu')",
         "assert int(r.n_ok) == 2 and bool(torch.isfinite(r.ei).all())",
+        "r = suggest_step_per_sec(g, h, h, x, y, 2 * x[:, 0], m,",
+        "                         np.zeros((4, 2), np.float32),",
+        "                         np.zeros(4, bool), rng.rand(64, 2),",
+        "                         np.ones(64, bool), SuggestConfig(",
+        "                         mcmc_iters=1, lbfgs_iters=3,",
+        "                         grid_subset=2), device='cpu')",
+        "assert int(r.n_ok) > 0 and bool(torch.isfinite(r.ei_per_s).all())",
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')",
         "       or k == 'spearmint_tpu' or k.startswith('spearmint_tpu.')]",
         "print('LOADED', bad)",
