@@ -18,8 +18,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               assembled in float32) at the same four shapes with the same
               non-PSD lanes, and all five at [2, 640, 640] (five tiles:
               B3's recursion pairs four tiles with one), and B1-B3 at
-              the sync harness's pad [10, 512, 512] and the per_sec
-              preset's [10, 1024, 1024], each with a non-PSD lane; each held
+              the sync harness's pad [10, 512, 512], the per_sec
+              preset's [10, 1024, 1024] and the augmented pad of a harness
+              suggestion with jobs in flight [10, 640, 640], each with a
+              non-PSD lane; each held
               against its plain PyTorch version and a float64
               ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
               events) beside the plain version, the nearest PyTorch
@@ -98,6 +100,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               (the per-sec one with both families' keys), n_ok > 0, and
               B1, B2 and B3 launched on every suggestion (the launches of
               each suggestion are recorded);
+ 12b. harness_async_branin, harness_async_per_sec  the port's
+              asynchronous harness (``harness.main.main``, in this process)
+              on the same seeded experiment with the local driver, three
+              jobs in flight at most and an objective that sleeps 1 s:
+              6 jobs of GPEIOptChooser and 5 of GPEIperSecChooser (450 + N
+              finished jobs; the loop may start two more, which the phase
+              waits for).  Each job runs in a child ``python -m
+              spearmint_tpu_torch.harness.runner`` (the repository root on
+              PYTHONPATH), started while this process holds the card; its
+              start-up time is recorded.  Every job complete, none broken,
+              n_ok > 0 and B1-B3 launched on every suggestion, and at least
+              two suggestions with jobs in flight, each launching B2 at
+              pads 512 (fantasies) and 640 (augmented caches) and B3 at
+              640; launches per suggestion split by width;
+ 12c. lite_branin  the port's spearmint-lite (``lite.suggest_batch``) on a
+              results.dat of the same 450 completions, three
+              GPEIOptChooser suggestions in one batch: exactly three ``P P``
+              rows added, the suggestions seeing 0, 1 and 2 pending rows,
+              and B2 and B3 launched at the augmented pad 640 on the
+              second and third;
  13. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
               its device time by kernel name (trailing, diagonal, panel,
               copy).
@@ -793,6 +815,9 @@ def check_kernels(torch, gk):
     # at these pads runs B4)
     hold_case(torch, gk, "harness_pad_nan_lane", 10, 512, 5, 3)
     hold_case(torch, gk, "per_sec_pad_nan_lane", 10, 1024, 6, 7)
+    # the augmented pad of a harness suggestion with jobs in flight (512
+    # observations + 128 pending rows): B2 and B3 there, B1 beside them
+    hold_case(torch, gk, "harness_augmented_pad_nan_lane", 10, 640, 8, 4)
 
     # timing at the flagship shape: kernel, plain version, library calls
     n, k = 5120, 10
@@ -1945,18 +1970,82 @@ def run_constrained_chooser(torch):
 
 # --------------------------------------------------------------- harness
 class CountedChooser:
-    """A chooser whose ``next`` records the kernel launches it made."""
+    """A chooser whose ``next`` records the kernel launches it made and,
+    given a ``Widths`` probe, B1-B3's launches by matrix width."""
 
-    def __init__(self, chooser):
+    def __init__(self, chooser, widths=None):
         self.chooser = chooser
+        self.widths = widths
         self.per_call = []
+        self.widths_per_call = []
 
     def next(self, *args):
         before = launch_counts()
+        w0 = dict(self.widths.counts) if self.widths else {}
         out = self.chooser.next(*args)
         after = launch_counts()
         self.per_call.append({k: after[k] - before[k] for k in after})
+        if self.widths:
+            self.widths_per_call.append(
+                {k: v - w0.get(k, 0) for k, v in
+                 sorted(self.widths.counts.items()) if v > w0.get(k, 0)})
         return out
+
+
+class Widths:
+    """While installed, counts the calls of B1-B3's wrappers on card
+    tensors by matrix width, as ``"<wrapper>@<n>"`` (each such call is one
+    launch, which the wrapper counts itself); ``__exit__`` puts the
+    wrappers back."""
+
+    names = FLAGSHIP_PATH
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        from spearmint_tpu_torch.ops import gp_kernels
+
+        self._orig = {name: getattr(gp_kernels, name) for name in self.names}
+        for name, fn in self._orig.items():
+            setattr(gp_kernels, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(first, *args):
+            if first.is_cuda:
+                key = f"{name}@{first.shape[-1]}"
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return fn(first, *args)
+        return call
+
+    def __exit__(self, *exc):
+        from spearmint_tpu_torch.ops import gp_kernels
+
+        for name, fn in self._orig.items():
+            setattr(gp_kernels, name, fn)
+
+
+def braninpy_experiment(expt):
+    """A copy of examples/braninpy in ``expt`` whose Sobol grid (HARNESS's
+    size and seed) has its first ``seeded`` points complete through the
+    port's ExperimentGrid, with their Branin values and durations
+    exp(2·x0) s; returns the config."""
+    import shutil
+
+    from spearmint_tpu_torch.harness import loop
+    from spearmint_tpu_torch.store import codec
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for f in ("config.pb", "branin.py"):
+        shutil.copy(os.path.join(repo, "examples", "braninpy", f), expt)
+    config = codec.load_experiment(os.path.join(expt, "config.pb"))
+    grid = loop.open_grid(expt, config, HARNESS["grid_size"],
+                          HARNESS["grid_seed"])
+    for i in range(HARNESS["seeded"]):
+        u = grid.grid[i]
+        grid.set_complete(i, branin_unit(u), math.exp(2.0 * u[0]))
+    return config
 
 
 def run_harness(torch, label, chooser_name, suggestions):
@@ -1970,7 +2059,6 @@ def run_harness(torch, label, chooser_name, suggestions):
     were launched on every suggestion and every n_ok > 0.  The harness's
     and the objective's prints go to harness.log in the experiment."""
     import contextlib
-    import shutil
     from argparse import Namespace
 
     from spearmint_tpu_torch.choosers import get_chooser
@@ -1978,19 +2066,11 @@ def run_harness(torch, label, chooser_name, suggestions):
     from spearmint_tpu_torch.harness import loop, sync
     from spearmint_tpu_torch.store import codec
 
-    repo = os.path.dirname(os.path.abspath(__file__))
     hcfg = HARNESS
     reset_launches()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as expt:
-        for f in ("config.pb", "branin.py"):
-            shutil.copy(os.path.join(repo, "examples", "braninpy", f), expt)
-        config = codec.load_experiment(os.path.join(expt, "config.pb"))
-        grid = loop.open_grid(expt, config, hcfg["grid_size"],
-                              hcfg["grid_seed"])
-        for i in range(hcfg["seeded"]):
-            u = grid.grid[i]
-            grid.set_complete(i, branin_unit(u), math.exp(2.0 * u[0]))
+        config = braninpy_experiment(expt)
         chooser = CountedChooser(get_chooser(chooser_name, expt,
                                              HARNESS_ARGS))
         options = Namespace(grid_size=hcfg["grid_size"],
@@ -2039,6 +2119,226 @@ def run_harness(torch, label, chooser_name, suggestions):
             or min(c[k] for c in chooser.per_call
                    for k in FLAGSHIP_PATH) <= 0):
         fail(f"{label}: {rec}")
+    return rec
+
+
+# Seconds each job of the async phases sleeps before it returns its Branin
+# value: long enough that the suggestions after it see it in flight.
+JOB_SLEEP_S = 1.0
+SLEEPING_BRANIN = f"""import time
+
+import branin_example
+
+
+def main(job_id, params):
+    time.sleep({JOB_SLEEP_S})
+    return branin_example.main(job_id, params)
+"""
+
+
+def suggestion_records(events, counted):
+    """One record per suggestion: the chooser's suggest event beside the
+    launches (and launches by width) its ``next`` made."""
+    suggests = [e for e in events if e["kind"] == "suggest"]
+    return [dict(n_pending=e["n_pending"], n_ok=e["n_ok"],
+                 latency_s=e["latency_s"], launches=c, widths=w)
+            for e, c, w in zip(suggests, counted.per_call,
+                               counted.widths_per_call)]
+
+
+def pending_gate(label, rec, suggestions, kernels_pending):
+    """Fails unless there was one record per suggestion, each with n_ok > 0
+    and B1-B3 launched, at least two saw jobs in flight, and those that
+    did launched ``kernels_pending`` (wrapper@width keys)."""
+    per = rec["per_suggestion"]
+    pend = [r for r in per if r["n_pending"] > 0]
+    if (len(per) != suggestions or len(pend) < 2
+            or min(r["n_ok"] for r in per) <= 0
+            or min(r["launches"][k] for r in per for k in FLAGSHIP_PATH) <= 0
+            or min(r["widths"].get(k, 0) for r in pend
+                   for k in kernels_pending) <= 0):
+        fail(f"{label}: {rec}")
+
+
+def run_async_harness(torch, label, chooser_name, jobs):
+    """The port's asynchronous harness, ``harness.main.main([...])`` in this
+    process, on ``braninpy_experiment`` (450 completions, pad 512) with the
+    local driver, three jobs in flight at most, and an objective that
+    sleeps JOB_SLEEP_S before it returns its Branin value, so later
+    suggestions fantasize the jobs still running (B2 at pads 512 and 640,
+    B3 at 640).  ``--max-finished-jobs`` is 450 + ``jobs``; the loop stops
+    dispatching there, as the JAX package's does, so up to two more jobs
+    may be in flight when it returns: the phase waits for them.  Each job
+    runs in a child ``python -m spearmint_tpu_torch.harness.runner``
+    started while this process holds the card (the repository root on
+    PYTHONPATH, as the README sets it); a child reads and writes only the
+    store.  Fails unless every job ended complete, none broken, every
+    suggestion launched B1-B3 with n_ok > 0, and at least two suggestions
+    saw jobs in flight and launched B2 at 512 and 640 and B3 at 640."""
+    import contextlib
+    import shutil
+    import signal
+
+    from spearmint_tpu_torch.core.linalg import pad_bucket, pend_pad
+    from spearmint_tpu_torch.harness import loop
+    from spearmint_tpu_torch.harness import main as harness_main
+    from spearmint_tpu_torch.store import codec
+    from spearmint_tpu_torch.utils.events import EventLog
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    hcfg = HARNESS
+    t0 = time.perf_counter()
+    old_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [repo] + ([old_path] if old_path else []))
+    choose_next = loop.choose_next
+    with tempfile.TemporaryDirectory() as expt:
+        config = braninpy_experiment(expt)
+        shutil.move(os.path.join(expt, "branin.py"),
+                    os.path.join(expt, "branin_example.py"))
+        with open(os.path.join(expt, "branin.py"), "w") as f:
+            f.write(SLEEPING_BRANIN)
+        argv = [expt, "--driver=local", "--max-concurrent=3",
+                "--polling-time=0.05", f"--chooser-module={chooser_name}",
+                f"--chooser-args={HARNESS_ARGS}",
+                f"--grid-size={hcfg['grid_size']}",
+                f"--grid-seed={hcfg['grid_seed']}",
+                f"--max-finished-jobs={hcfg['seeded'] + jobs}"]
+        counted = None
+
+        def counted_choose_next(grid, chooser):
+            nonlocal counted
+            if counted is None:
+                counted = CountedChooser(chooser, widths)
+            return choose_next(grid, counted)
+
+        settled = False
+        try:
+            with Widths() as widths:
+                loop.choose_next = counted_choose_next
+                reset_launches()
+                t1 = time.perf_counter()
+                with open(os.path.join(expt, "harness.log"), "w") as log, \
+                        contextlib.redirect_stdout(log):
+                    rc = harness_main.main(argv)
+                harness_s = time.perf_counter() - t1
+                launches = launch_counts()
+            grid = loop.open_grid(expt, config, hcfg["grid_size"],
+                                  hcfg["grid_seed"])
+            done_at_return = len(grid.get_complete()) - hcfg["seeded"]
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                if len(loop.open_grid(expt, config, hcfg["grid_size"],
+                                      hcfg["grid_seed"]).get_pending()) == 0:
+                    settled = True
+                    break
+                time.sleep(0.1)
+            wait_s = time.perf_counter() - t1 - harness_s
+        finally:
+            loop.choose_next = choose_next
+            if old_path is None:
+                os.environ.pop("PYTHONPATH", None)
+            else:
+                os.environ["PYTHONPATH"] = old_path
+            if not settled:
+                # stop every job this phase started before failing
+                grid = loop.open_grid(expt, config, hcfg["grid_size"],
+                                      hcfg["grid_seed"])
+                for i in grid.get_pending():
+                    with contextlib.suppress(OSError):
+                        os.killpg(int(grid.get_proc_id(int(i))),
+                                  signal.SIGKILL)
+        grid = loop.open_grid(expt, config, hcfg["grid_size"],
+                              hcfg["grid_seed"])
+        run_ids = [i for i in range(hcfg["seeded"], grid.grid.shape[0])
+                   if grid.status[i] != 0]
+        job_recs = [codec.load_job(codec.job_file_for(expt, i))
+                    for i in run_ids]
+        pad = pad_bucket(hcfg["seeded"] + jobs)
+        rec = dict(
+            phase=label, chooser=chooser_name, seeded=hcfg["seeded"],
+            pad=pad, aug_pad=pad + pend_pad(pad, 1), max_concurrent=3,
+            job_sleep_s=JOB_SLEEP_S, rc=rc, jobs=jobs,
+            dispatched=len(run_ids),
+            complete_at_return=done_at_return, settled=settled,
+            job_status=[j.status for j in job_recs],
+            points=[grid.unit_to_list(i) for i in run_ids],
+            n_broken=len(grid.get_broken()),
+            child_start_s=[j.start_t - j.submit_t for j in job_recs
+                           if j.start_t and j.submit_t],
+            job_duration_s=[j.duration for j in job_recs],
+            per_suggestion=suggestion_records(EventLog(expt).read(),
+                                              counted),
+            launches=launches, harness_s=harness_s, wait_s=wait_s,
+            seconds=time.perf_counter() - t0)
+    emit(rec)
+    kernels_pending = ("shifted_factor_logdet_q@512",
+                       "shifted_factor_logdet_q@640", "tri_inverse@640")
+    if (rc != 0 or not settled or done_at_return < jobs or rec["n_broken"]
+            or rec["job_status"] != ["complete"] * len(run_ids)):
+        fail(f"{label}: {rec}")
+    pending_gate(label, rec, len(run_ids), kernels_pending)
+    return rec
+
+
+def run_lite(torch, label="lite_branin", n=3):
+    """The port's spearmint-lite, ``lite.suggest_batch``, on a results.dat
+    of 450 completed rows (the first points of HARNESS's Sobol grid with
+    their Branin values), ``n`` suggestions of GPEIOptChooser in one batch
+    over the same 2000-point grid: each appended ``P P`` row is pending
+    for the next, so the second and third fantasize one and two rows.
+    Fails unless exactly ``n`` pending rows were added, the suggestions
+    saw 0, 1, ... pending rows, every one launched B1-B3 with n_ok > 0,
+    and those with rows pending launched B2 and B3 at the augmented pad
+    640."""
+    import shutil
+
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.harness import lite
+    from spearmint_tpu_torch.store import codec, varmap
+    from spearmint_tpu_torch.store.sobol import sobol_grid
+    from spearmint_tpu_torch.utils.events import EventLog
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    hcfg = HARNESS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as expt:
+        shutil.copy(os.path.join(repo, "examples", "braninpy", "config.pb"),
+                    expt)
+        config = codec.load_experiment(os.path.join(expt, "config.pb"))
+        path = os.path.join(expt, "results.dat")
+        base = sobol_grid(2, hcfg["grid_size"], hcfg["grid_seed"])
+        with open(path, "w") as f:
+            for u in base[:hcfg["seeded"]]:
+                typed = varmap.unit_to_typed(config.variables, u)
+                f.write(f"{float(branin_unit(u))} {math.exp(2.0 * u[0])} "
+                        + " ".join(str(t) for t in typed) + "\n")
+        with Widths() as widths:
+            counted = CountedChooser(
+                get_chooser("GPEIOptChooser", expt, HARNESS_ARGS), widths)
+            reset_launches()
+            t1 = time.perf_counter()
+            rows = lite.suggest_batch(expt, config, counted, n,
+                                      hcfg["grid_size"], hcfg["grid_seed"])
+            lite_s = time.perf_counter() - t1
+            launches = launch_counts()
+        comp, _, _, pend = lite.parse_results(path, config.variables)
+        with open(path) as f:
+            added = [line for line in f.read().splitlines()
+                     if line.startswith("P P ")]
+        rec = dict(phase=label, chooser="GPEIOptChooser",
+                   completed_rows=len(comp), rows=rows, pending_rows=added,
+                   per_suggestion=suggestion_records(EventLog(expt).read(),
+                                                     counted),
+                   launches=launches, lite_s=lite_s,
+                   seconds=time.perf_counter() - t0)
+    emit(rec)
+    if (len(added) != n or len(pend) != n or len(comp) != hcfg["seeded"]
+            or [r["n_pending"] for r in rec["per_suggestion"]]
+            != list(range(n))):
+        fail(f"{label}: {rec}")
+    pending_gate(label, rec, n, ("shifted_factor_logdet_q@640",
+                                 "tri_inverse@640"))
     return rec
 
 
@@ -2113,7 +2413,14 @@ def main(argv) -> int:
                  torch, "harness_branin", "GPEIOptChooser", 4)["launches"],
              "harness_per_sec": run_harness(
                  torch, "harness_per_sec", "GPEIperSecChooser",
-                 3)["launches"]}
+                 3)["launches"],
+             "harness_async_branin": run_async_harness(
+                 torch, "harness_async_branin", "GPEIOptChooser",
+                 6)["launches"],
+             "harness_async_per_sec": run_async_harness(
+                 torch, "harness_async_per_sec", "GPEIperSecChooser",
+                 5)["launches"],
+             "lite_branin": run_lite(torch)["launches"]}
     b1_split(torch, gk, records["B1"])
 
     src = "spearmint_tpu_torch/ops/csrc/"

@@ -6,7 +6,7 @@ hyperparameters, EI averaged over samples, pending-job fantasies, batched
 projected L-BFGS), its constrained form (a probit latent-GP classifier of
 NaN-valued violations weighting EI) and its cost-aware form (EI per
 expected second, from a second GP over log job durations), with the
-experiment store and the sync harness, written in PyTorch for one NVIDIA
+experiment store and the harnesses, written in PyTorch for one NVIDIA
 H100.  The Cholesky-family Pallas kernels of these paths are CUDA C++
 kernels written by hand for ``sm_90a`` (``ops/csrc``), with plain PyTorch
 versions beside them that serve CPU tensors (``ops/gp_kernels``).
@@ -19,11 +19,14 @@ Layout mirrors the JAX package:
             suggestion steps
   ops/      the CUDA kernels, their plain versions and their build
   choosers/ GPEIOptChooser, GPEIChooser, GPConstrainedEIChooser,
-            GPEIperSecChooser
+            GPEIperSecChooser, and the host-side Random, Sequential, Grid
+            and RandomForestEI choosers
   store/    the Sobol grid, unit ↔ typed parameters, the config and job
             codec, ExperimentGrid (the on-disk experiment) and the locker
-  harness/  the job runner, the shared suggest loop and the sync harness
-            (``python -m spearmint_tpu_torch.harness.sync``)
+  harness/  the job runner and its drivers (local, sge, fake), the shared
+            suggest loop, the asynchronous and sync harnesses,
+            spearmint-lite, the web status page and the terminal view
+            (``python -m spearmint_tpu_torch.harness.{main,sync,lite,watch}``)
   utils/    argument parsing, event log, device selection
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is asked for; with

@@ -1,5 +1,4 @@
-"""Shared suggest-loop machinery for the sync harness (and the async one
-of a later slice).
+"""Shared suggest-loop machinery for the async and sync harnesses.
 
 JAX counterpart: ``spearmint_tpu/harness/loop.py``, of which this is a copy
 on the port's own store, without ``enable_persistent_compile_cache`` (it

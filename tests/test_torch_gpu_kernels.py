@@ -19,8 +19,9 @@ plain PyTorch version on the same card and against a float64 oracle,
 at a ragged width, at the production pad 1024 (the pad of
 ``tests/test_tpu_smoke.py``), at the pending flagship's augmented pad
 5248, at [10, 512, 512] and [10, 1024, 1024] (the sync harness's pad and
-the per_sec preset's, ten lanes) and at [2, 1152, 1152] with a ragged real
-block; B1 and B4a must
+the per_sec preset's, ten lanes), B2 and B3 at [10, 640, 640] with a
+non-PSD lane (the augmented pad of a harness suggestion with jobs in
+flight) and at [2, 1152, 1152] with a ragged real block; B1 and B4a must
 give bit-identical ld and q from call to call.  Inputs are M = F Fᵀ/8
 (rank 8) plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors
 stay near n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4
@@ -187,6 +188,38 @@ def test_non_psd_lane_gives_nan_in_its_own_lane_only(cuda):
         assert bool(torch.isnan(a[1]))
         assert bool(torch.isfinite(a[[0, 2]]).all())
     assert bool(torch.isfinite(l5[[0, 2]]).all())
+
+
+def test_augmented_pad_of_a_harness_suggestion_with_a_non_psd_lane(cuda):
+    """[10, 640, 640], the augmented pad of a harness suggestion with jobs
+    in flight (observation pad 512 plus 128 pending rows): B2 and B3 with
+    lane 4 negated give NaN ld and q in that lane only; the other nine
+    lanes are held against the plain versions and float64 at the file's
+    tolerances."""
+    gk = cuda
+    m, d, r = _case(10, 640, seed=640)
+    m[4] = -m[4]
+    ld, q, lmat, w = gk.shifted_factor_logdet_q(m, d, r)
+    x = gk.tri_inverse(lmat)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ld[4])) and bool(torch.isnan(q[4]))
+    good = torch.tensor([i != 4 for i in range(10)], device="cuda")
+    ld, q, lmat, w, x = (t[good] for t in (ld, q, lmat, w, x))
+    m, d, r = (t[good].contiguous() for t in (m, d, r))
+    assert bool(torch.isfinite(lmat).all() and torch.isfinite(x).all())
+    p_ld, p_q, p_l, p_w = gk.shifted_factor_logdet_q_ref(m, d, r)
+    p_x = gk.tri_inverse_ref(lmat.contiguous())
+    o_ld, o_q, o_l, o_w = _oracle(m, d, r)
+    o_x = torch.linalg.inv(lmat.double())
+    for want_ld, want_q, want_l, want_w in ((p_ld, p_q, p_l, p_w),
+                                            (o_ld, o_q, o_l, o_w)):
+        assert _rel(ld, want_ld) < TOL["ld"]
+        assert _rel(q, want_q) < TOL["q"]
+        assert _abs(lmat, want_l) < TOL["L"]
+        assert _abs(w, want_w) / float(want_w.abs().max()) < TOL["w"]
+    assert _abs(x, p_x) < TOL["X"] and _abs(x, o_x) < TOL["X"]
+    assert float(torch.triu(lmat, 1).abs().max()) == 0.0
+    assert float(torch.triu(x, 1).abs().max()) == 0.0
 
 
 def test_padded_rows_are_inert_on_the_card(cuda):

@@ -154,10 +154,12 @@ def test_no_quiet_fallback_to_the_cpu(tmp_path, monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports the port (the constrained engine, ESS,
-    the constrained chooser, band mode, EI per second, the store and the
-    harness included), runs a tiny CPU suggestion, a tiny CPU constrained
-    suggestion, a tiny CPU band-mode suggestion and a tiny CPU EI-per-second
-    suggestion, and has loaded no module of jax or of spearmint_tpu."""
+    the constrained chooser, band mode, EI per second, the store, the sync
+    and async harnesses, the drivers, lite, the status page, the terminal
+    view and the numpy-only choosers included), runs a tiny CPU suggestion,
+    a tiny CPU constrained suggestion, a tiny CPU band-mode suggestion and
+    a tiny CPU EI-per-second suggestion, and has loaded no module of jax or
+    of spearmint_tpu."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import spearmint_tpu_torch",
@@ -178,6 +180,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spearmint_tpu_torch.harness.loop",
         "import spearmint_tpu_torch.harness.runner",
         "import spearmint_tpu_torch.harness.sync",
+        "import spearmint_tpu_torch.harness.main",
+        "import spearmint_tpu_torch.harness.lite",
+        "import spearmint_tpu_torch.harness.status",
+        "import spearmint_tpu_torch.harness.watch",
+        "import spearmint_tpu_torch.harness.drivers.fake",
+        "import spearmint_tpu_torch.harness.drivers.local",
+        "import spearmint_tpu_torch.harness.drivers.sge",
+        "import spearmint_tpu_torch.choosers.RandomChooser",
+        "import spearmint_tpu_torch.choosers.SequentialChooser",
+        "import spearmint_tpu_torch.choosers.GridChooser",
+        "import spearmint_tpu_torch.choosers.RandomForestEIChooser",
+        "from spearmint_tpu_torch.harness.drivers import get_driver",
+        "assert get_driver('fake').submit_job(None) == 1000",
         "from spearmint_tpu_torch.engine.per_sec import suggest_step_per_sec",
         "rng = np.random.RandomState(0)",
         "x = np.zeros((16, 2), np.float32); x[:6] = rng.rand(6, 2)",
