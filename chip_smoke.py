@@ -20,8 +20,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               B3's recursion pairs four tiles with one), and B1-B3 at
               the sync harness's pad [10, 512, 512], the per_sec
               preset's [10, 1024, 1024] and the augmented pad of a harness
-              suggestion with jobs in flight [10, 640, 640], each with a
-              non-PSD lane; each held
+              suggestion with jobs in flight [10, 640, 640], and phase
+              14's shapes: a (2, 1) chains mesh's [5, 5120, 5120], the obs
+              chooser's burn-in [4, 1024, 1024] and large_chains'
+              [4, 10240, 10240], each with a non-PSD lane; each held
               against its plain PyTorch version and a float64
               ``torch.linalg`` oracle, and timed at [10, 5120, 5120] (CUDA
               events) beside the plain version, the nearest PyTorch
@@ -123,9 +125,53 @@ Phases, each of which exits non-zero on failure (nothing is caught):
  13. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
               its device time by kernel name (trailing, diagonal, panel,
               copy).
+ 14. distributed  the multi-GPU paths, run by two ranks that share the
+              card: this script started again twice (``--rank r --world 2
+              --store FILE --out DIR``), joined by gloo through a
+              FileStore, which stages every collective through the host
+              (so no number here is multi-GPU scaling).  Before they
+              start, this process runs the single-rank chains path at
+              bench.py ``PRESETS["large"]`` (n=10000, pad 10240, 4 chains,
+              8192 candidates, chain_chunk 0: ``large_chains``, B1 at
+              [4, 10240, 10240]) and the unsharded flagship step.  Each
+              rank then runs, once: ``obs_large``, the obs-sharded
+              suggestion (``engine/obs_shard.sharded_suggest_obs``) on the
+              same inputs and seed after a warm-up at pad 1024, one
+              marginal evaluation at the chains' initial state and the
+              posterior at 2048 candidates there; ``obs_per_sec``
+              (``sharded_suggest_per_sec`` at ``PRESETS["per_sec"]``);
+              ``obs_chooser``, both GP choosers' ``next`` at pad 1024 with
+              ``obs_shard_min=1024``, without and with a job pending, in
+              one experiment directory each; ``chains_mesh``,
+              ``engine/mesh.sharded_suggest`` at the flagship on meshes
+              (2, 1) and (1, 2).  Gates: every rank's results equal bit for
+              bit; EI finite; ``obs_large``'s n_ok 4 less the samples a
+              float64 Cholesky of the assembled float32 matrix finds
+              indefinite (``obs_per_sec``: 10 less, either family), its lp
+              at the initial state within 1e-4 (relative) of float64 and
+              its posterior mean and variance within 2e-2 of float64
+              (largest error over the largest value) at the initial state
+              and the four sampled states, and at the initial state on
+              three more data seeds (a dense float32 library posterior and
+              a TF32 control are recorded beside them); no kernel of ours
+              launched on the obs paths; the choosers' modes ``obs_shard``
+              then ``chains``; on every chains mesh B1, B2 and B3 launched
+              on every rank, the same ``best_cand`` and n_ok 10 as the
+              unsharded step; on (1, 2) its chain states and samples bit
+              for bit and its EI bit for bit that of the unsharded step
+              run on each half of the candidates; on (2, 1) the chain
+              states and samples within rtol 2e-3 (atol 1e-5) and EI within
+              2e-2 of the largest EI (the EI of half the chains recorded
+              as the control).
+              Records: seconds, stages, marginal evaluations, collective
+              calls, bytes and seconds (each collective timed after a
+              device synchronize), peak memory per rank, and the obs and
+              chains paths side by side at the large preset (not gated).
+              A child that fails or runs out of time fails the run.
 
 Every line before the last three is one JSON record, stamped with the
-seconds since the script began (``t_s``).  Then come the
+seconds since the script began (``t_s``; a rank's own records carry its
+``rank`` and its seconds since it began, ``rank_t_s``).  Then come the
 ``{"kernels": [...]}`` line (each kernel's launches on every path), the
 ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}`` line.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -818,6 +864,12 @@ def check_kernels(torch, gk):
     # the augmented pad of a harness suggestion with jobs in flight (512
     # observations + 128 pending rows): B2 and B3 there, B1 beside them
     hold_case(torch, gk, "harness_augmented_pad_nan_lane", 10, 640, 8, 4)
+    # phase 14's shapes: the chains mesh (2, 1) gives each rank 5 of the
+    # flagship's 10 lanes; the obs chooser's burn-in runs 4 chains at pad
+    # 1024; large_chains factors 4 lanes at pad 10240 (B1 and B2 there)
+    hold_case(torch, gk, "chains_mesh_half_lanes_nan_lane", 5, 5120, 9, 2)
+    hold_case(torch, gk, "obs_chooser_pad_nan_lane", 4, 1024, 10, 1)
+    hold_case(torch, gk, "large_pad_nan_lane", 4, 10240, 11, 3)
 
     # timing at the flagship shape: kernel, plain version, library calls
     n, k = 5120, 10
@@ -973,10 +1025,10 @@ def check_small_input(torch):
 
 
 # --------------------------------------------------------------- phase 5/6
-def padded_problem(torch, n, d, cands, n_pending=0):
+def padded_problem(torch, n, d, cands, n_pending=0, seed=0):
     from spearmint_tpu_torch.core.linalg import pad_bucket, pend_pad
 
-    x, y, cand = make_problem(n, d, cands)
+    x, y, cand = make_problem(n, d, cands, seed)
     pad = pad_bucket(n)
     xp = np.zeros((pad, d), np.float32); xp[:n] = x
     yp = np.zeros(pad, np.float32); yp[:n] = y
@@ -2342,6 +2394,638 @@ def run_lite(torch, label="lite_branin", n=3):
     return rec
 
 
+# ------------------------------------------- phase 14: two ranks, one card
+# bench.py PRESETS["large"]: n=10000 (pad 10240), 4 chains, 8192
+# candidates.  Its chain_chunk=1 bounded one TPU's memory; here the 4 lanes
+# are one batch (chain_chunk 0) on both paths, so they draw alike.
+LARGE = dict(n=10000, d=2, chains=4, cands=8192)
+OBS_WARM = dict(LARGE, n=1000)           # the warm-up, pad 1024
+POSTERIOR_CANDS = 2048
+POSTERIOR_SEEDS = (0, 1, 2, 3)
+# gates against float64: the colblock lp at the chains' initial state
+# (relative), and the posterior mean and variance (max abs error over the
+# float64 max) at every reading of POSTERIOR_SEEDS.  tests/test_tpu_smoke.py
+# holds the posterior to 5e-3 at n=1000; at n=10000 a dense float32 library
+# factorization of the same states already reads up to 6.7e-3 (variance)
+# and the obs path up to 7.9e-3 (mean), while TF32 matmuls in the slab
+# update fail outright (NaN); the limit sits 2.5x above the largest sound
+# reading (H100 80GB HBM3, 700 W).
+LP_TOL = 1e-4
+POSTERIOR_TOL = 2e-2
+# the two GP choosers at pad 1024 on the obs-sharded route
+OBS_CHOOSER = dict(n=1000, d=2, cands=1000)
+OBS_CHOOSER_ARGS = ("chains=4,mcmc_iters=4,burnin=2,grid_subset=5,"
+                    "lbfgs_iters=10,obs_shard_min=1024,seed=0")
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_RTOL, MESH_ATOL = 2e-3, 1e-5        # tests/test_sharding.py's
+# the (2, 1) mesh's EI against the unsharded step's, max abs difference
+# over the largest EI.  At the flagship every EI is below 1e-8, in the
+# tail where float32 rounding of the posterior moves EI by percents
+# element by element: the unsharded step itself moves by 2.8e-3 of its
+# largest EI when its candidates are split in two, the mesh reads 4.2e-3,
+# and an average over half the chains (a wrong EI) reads 0.39 (H100 80GB
+# HBM3, 700 W).  The (1, 2) mesh is held bit for bit instead.
+MESH_EI_REL = 2e-2
+RANKS = 2
+RANK_TIMEOUT_S = 900
+
+
+def obs_stage(torch, label, step, records, stats=None):
+    """Run ``step(stage_times)`` once; its seconds (device synchronized),
+    stages, launches, peak memory and, given an obs mesh's ``stats``, its
+    marginal evaluations and collective counters."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stages = {}
+    if stats is not None:
+        stats.clear()
+    t0 = time.perf_counter()
+    res = step(stages)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = dict(phase=label, seconds=seconds, stage_s=stages,
+               launches=launch_counts(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if stats is not None:
+        rec.update(marginals=stats.get("marginals", 0),
+                   collective_calls=stats.get("collective_calls", 0),
+                   collective_bytes=stats.get("collective_bytes", 0),
+                   collective_s=stats.get("collective_s", 0.0),
+                   collective_share=stats.get("collective_s", 0.0) / seconds)
+    records.append(rec)
+    return res, rec
+
+
+def save_hypers(arrays, prefix, h):
+    for k, a in h._asdict().items():
+        arrays[f"{prefix}.{k}"] = a.detach().cpu().numpy()
+
+
+def rank_obs_large(torch, arrays, records):
+    """The obs-sharded suggestion at the large preset (after one at pad
+    1024 to warm the libraries and the ranks' connections), one marginal
+    evaluation at the chains' initial state (its lp, collective bytes and
+    seconds), and the posterior at POSTERIOR_CANDS candidates there."""
+    from spearmint_tpu_torch.engine import obs_shard
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, _take, init_chain_states,
+    )
+
+    dev = "cuda"
+    cfg = SuggestConfig(mcmc_iters=1, optimize=False, explicit_inverse=False)
+    stats = {}
+    mesh = obs_shard.make_obs_mesh(device=dev, stats=stats)
+    for label, p in (("obs_large_warm", OBS_WARM), ("obs_large", LARGE)):
+        xp, yp, mask, _, _, cand, cmask = padded_problem(
+            torch, p["n"], p["d"], p["cands"])
+        x, y = torch.tensor(xp, device=dev), torch.tensor(yp, device=dev)
+        m = torch.tensor(mask, device=dev)
+        h0 = init_chain_states(y, m, p["d"], p["chains"])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        res, rec = obs_stage(torch, label, lambda st: obs_shard.
+                             sharded_suggest_obs(mesh, cfg, st)(
+                                 gen, h0, x, y, m, cand, cmask),
+                             records, stats)
+        rec.update(n=p["n"], pad=len(yp), chains=p["chains"],
+                   cands=p["cands"], n_ok=int(res.n_ok),
+                   best_cand=int(res.best_cand),
+                   best_cand_ei=float(res.best_cand_ei),
+                   ei_finite=bool(torch.isfinite(res.ei).all()))
+    arrays["obs_large.ei"] = res.ei.cpu().numpy()
+    arrays["obs_large.best_cand"] = res.best_cand.cpu().numpy()
+    save_hypers(arrays, "obs_large.hypers", res.hypers)
+    save_hypers(arrays, "obs_large.samples", res.samples)
+    # one evaluation at the initial state: the lp gate's input, and what
+    # one marginal evaluation moves and waits for
+    obs_stage(torch, "obs_large_eval", lambda st: arrays.update(
+        {"obs_large.lp0": obs_shard._marginal_colblock(
+            mesh, x, y, m, h0).cpu().numpy()}), records, stats)
+    # the posterior gate's readings: at the initial state and the four
+    # sampled states on this data, at the initial state on POSTERIOR_SEEDS'
+    # data, and the control (TF32 matmuls) at the initial state
+    for key, h, seed, tf32 in posterior_readings(
+            torch, _take(h0, slice(0, 1)), res.samples):
+        xs, ys, ms, cs = posterior_problem(torch, seed)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            mu, var = obs_shard.posterior_colblock(mesh, xs, ys, ms, cs, *h)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        arrays[f"obs_large.post.{key}.mu"] = mu.cpu().numpy()
+        arrays[f"obs_large.post.{key}.var"] = var.cpu().numpy()
+
+
+def posterior_problem(torch, seed):
+    """The large preset's data from ``seed`` and its first POSTERIOR_CANDS
+    candidates, on the card."""
+    p = LARGE
+    xp, yp, mask, _, _, cand, _ = padded_problem(torch, p["n"], p["d"],
+                                                 p["cands"], seed=seed)
+    return (torch.tensor(xp, device="cuda"), torch.tensor(yp, device="cuda"),
+            torch.tensor(mask, device="cuda"),
+            torch.tensor(cand[:POSTERIOR_CANDS], device="cuda"))
+
+
+def posterior_readings(torch, h_init, samples):
+    """(key, lanes, data seed, TF32) of every posterior reading: seed 0 at
+    the initial state and ``samples``, each other POSTERIOR_SEEDS entry at
+    its own data's initial state (``h_init`` is None in the parent, which
+    builds it from that data), and the TF32 control at seed 0's."""
+    from spearmint_tpu_torch.core.likelihood import GPHypers
+    from spearmint_tpu_torch.engine.suggest import init_chain_states
+
+    def init(seed):
+        if seed == 0 and h_init is not None:
+            return h_init
+        _, ys, ms, _ = posterior_problem(torch, seed)
+        return init_chain_states(ys, ms, LARGE["d"], 1)
+
+    h0 = init(0)
+    out = [("s0", GPHypers(*(torch.cat([a, b.to(a.device)])
+                             for a, b in zip(h0, samples))), 0, False)]
+    out += [(f"s{seed}", init(seed), seed, False)
+            for seed in POSTERIOR_SEEDS[1:]]
+    return out + [("tf32", h0, 0, True)]
+
+
+def rank_obs_per_sec(torch, arrays, records):
+    """``sharded_suggest_per_sec`` at bench.py PRESETS["per_sec"]."""
+    from spearmint_tpu_torch.engine import obs_shard
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states,
+    )
+
+    dev = "cuda"
+    p = PER_SEC
+    xp, yp, tp, mask, cand = per_sec_problem(p["n"], p["d"], p["cands"])
+    m = torch.tensor(mask, device=dev)
+    h = init_chain_states(torch.tensor(yp, device=dev), m, p["d"],
+                          p["chains"])
+    t = init_chain_states(torch.tensor(tp, device=dev), m, p["d"],
+                          p["chains"])
+    cfg = SuggestConfig(mcmc_iters=1, optimize=False)
+    stats = {}
+    mesh = obs_shard.make_obs_mesh(device=dev, stats=stats)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res, rec = obs_stage(torch, "obs_per_sec", lambda st: obs_shard.
+                         sharded_suggest_per_sec(mesh, cfg, st)(
+                             gen, h, t, xp, yp, tp, mask, cand,
+                             np.ones(p["cands"], bool)), records, stats)
+    rec.update(n=p["n"], pad=len(yp), chains=p["chains"], cands=p["cands"],
+               n_ok=int(res.n_ok), best_cand=int(res.best_cand),
+               ei_finite=bool(torch.isfinite(res.ei_per_s).all()))
+    arrays["obs_per_sec.ei_per_s"] = res.ei_per_s.cpu().numpy()
+    arrays["obs_per_sec.best_cand"] = res.best_cand.cpu().numpy()
+    save_hypers(arrays, "obs_per_sec.samples", res.samples)
+    save_hypers(arrays, "obs_per_sec.time_samples", res.time_samples)
+
+
+def rank_obs_chooser(torch, arrays, records, expt_root):
+    """Both GP choosers' ``next`` on every rank at pad 1024 (obs_shard_min
+    1024), in one experiment directory per chooser: with no job pending,
+    then with one.  Records what each call returned (exact reprs) and, on
+    the coordinator, the events' modes and latencies."""
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+    from spearmint_tpu_torch.utils.events import EventLog
+
+    c = OBS_CHOOSER
+    x, y, cand = make_problem(c["n"], c["d"], c["cands"], seed=6)
+    grid = np.concatenate([x, cand])
+    values = np.concatenate([y, np.full(c["cands"], np.nan)])
+    durations = np.concatenate([np.exp(2.0 * x[:, 0]),
+                                np.full(c["cands"], np.nan)])
+    complete = np.arange(c["n"])
+    candidates = np.arange(c["n"], c["n"] + c["cands"])
+    for name in ("GPEIOptChooser", "GPEIperSecChooser"):
+        expt = os.path.join(expt_root, name)
+        os.makedirs(expt, exist_ok=True)
+        ch = get_chooser(name, expt, OBS_CHOOSER_ARGS
+                         + ",device=cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        picks = [ch.next(grid, values, durations, candidates, [], complete)]
+        launches = [launch_counts()]
+        reset_launches()
+        picks.append(ch.next(grid, values, durations, candidates[1:],
+                             [int(candidates[0])], complete))
+        launches.append(launch_counts())
+        seconds = time.perf_counter() - t0
+        reprs = [str(s) if isinstance(s, int) else
+                 repr((float(s[0]), [float(v) for v in s[1]]))
+                 for s in picks]
+        arrays[f"obs_chooser.{name}.picks"] = np.array(reprs)
+        ev = [e for e in EventLog(expt).read() if e["kind"] == "suggest"]
+        records.append(dict(
+            phase="obs_chooser", chooser=name, pad=pad_bucket(c["n"]),
+            returned=reprs,
+            modes=[e["mode"] for e in ev], n_ok=[e["n_ok"] for e in ev],
+            latency_s=[e["latency_s"] for e in ev], seconds=seconds,
+            launches=launches))
+
+
+def rank_chains_mesh(torch, arrays, records):
+    """``mesh.sharded_suggest`` at the flagship on each of MESH_SHAPES,
+    one rep each, from the chains' initial state and generator seed 0."""
+    from spearmint_tpu_torch.engine import mesh
+    from spearmint_tpu_torch.engine.suggest import init_chain_states
+
+    dev = "cuda"
+    args, cfg = mesh_problem(torch)
+    for shape in MESH_SHAPES:
+        grid = mesh.make_mesh(*shape, device=dev)
+        h0 = init_chain_states(torch.tensor(args[1], device=dev),
+                               torch.tensor(args[2], device=dev),
+                               FLAGSHIP["d"], FLAGSHIP["chains"])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        label = f"chains_mesh_{shape[0]}x{shape[1]}"
+        res, rec = obs_stage(torch, label, lambda st: mesh.sharded_suggest(
+            grid, cfg)(gen, h0, *args, stage_times=st), records)
+        rec.update(shape=list(shape), n_ok=int(res.n_ok),
+                   best_cand=int(res.best_cand),
+                   ei_finite=bool(torch.isfinite(res.ei).all()))
+        for f in ("ei", "best_cand", "x_opt", "n_ok"):
+            arrays[f"{label}.{f}"] = getattr(res, f).detach().cpu().numpy()
+        save_hypers(arrays, f"{label}.hypers", res.hypers)
+        save_hypers(arrays, f"{label}.samples", res.samples)
+
+
+def mesh_problem(torch):
+    """The flagship's inputs and configuration (``run_suggest``'s)."""
+    from spearmint_tpu_torch.engine.suggest import SuggestConfig
+
+    f = FLAGSHIP
+    return (padded_problem(torch, f["n"], f["d"], f["cands"]),
+            SuggestConfig(mcmc_iters=1, grid_subset=10, lbfgs_iters=20))
+
+
+def rank_main(torch, rank, world, store, out_dir):
+    """One rank of the distributed phases: every phase once, its records
+    printed, its arrays to ``out_dir/rank<r>.npz``."""
+    import torch.distributed as dist
+
+    from spearmint_tpu_torch.engine import distributed
+
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo")
+    arrays, records = {}, []
+    rank_obs_large(torch, arrays, records)
+    rank_obs_per_sec(torch, arrays, records)
+    rank_obs_chooser(torch, arrays, records, os.path.join(out_dir, "expt"))
+    rank_chains_mesh(torch, arrays, records)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    for rec in records:
+        emit({**rec, "rank": rank})
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(out_dir):
+    """Start RANKS children (this script with ``--rank``), both on the
+    card, joined by gloo through a FileStore; wait for all of them within
+    RANK_TIMEOUT_S.  A child that fails or runs out of time fails the run;
+    every child is stopped before this returns.  Returns each rank's
+    records and arrays."""
+    store = os.path.join(out_dir, "store")
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+")
+            for r in range(RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(RANKS), "--store", store, "--out", out_dir],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(RANKS)]
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            fail(f"rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        recs = [json.loads(line) for line in text.splitlines()
+                if line.startswith("{")]
+        outs.append((recs, dict(np.load(os.path.join(out_dir,
+                                                     f"rank{r}.npz")))))
+    return outs
+
+
+def assembled_f64_info(torch, x, mask, h):
+    """Per lane of h, the float64 Cholesky info of the float32 matrix the
+    obs path assembles (amp2·(k + εI) + noise·I, identity rows on pads),
+    one lane at a time."""
+    from spearmint_tpu_torch.core.likelihood import cov_matrix
+
+    info = []
+    for i in range(len(h.amp2)):
+        k = cov_matrix(x, mask, *(a[i:i + 1] for a in h[1:]))
+        info.append(int(torch.linalg.cholesky_ex(k.double()).info[0]))
+        del k
+    return info
+
+
+def hypers_on(torch, arrays, prefix, dev):
+    from spearmint_tpu_torch.core.likelihood import GPHypers
+
+    return GPHypers(*(torch.tensor(arrays[f"{prefix}.{k}"], device=dev)
+                      for k in GPHypers._fields))
+
+
+def dense_posterior(torch, x, y, mask, cand, h, dtype=None):
+    """Log-marginal [K], and posterior mean and variance [K, C] at cand,
+    by dense library factorizations one lane at a time, in ``dtype``
+    (float64 by default) from the float32 inputs; NaN for a lane whose
+    factorization fails."""
+    from spearmint_tpu_torch.core.likelihood import (
+        _effective_jitter, cov_matrix, cross_cov,
+    )
+
+    dtype = dtype or torch.float64
+    x64, y64 = x.to(dtype), y.to(dtype)
+    out = []
+    for i in range(len(h.amp2)):
+        hi = type(h)(*(a[i:i + 1].to(dtype) for a in h))
+        l, bad = torch.linalg.cholesky_ex(cov_matrix(x64, mask, hi.amp2,
+                                                     hi.noise, hi.ls))
+        l = torch.where(bad[:, None, None] != 0, float("nan"), l)
+        r = torch.where(mask, y64 - hi.mean[:, None], 0.0)[..., None]
+        z = torch.linalg.solve_triangular(l, r, upper=False)
+        lp = (-torch.log(torch.diagonal(l, 0, -2, -1)).sum(-1)
+              - 0.5 * (z * z).sum((-2, -1)))
+        alpha = torch.cholesky_solve(r, l)
+        kx = cross_cov(x64, cand.to(dtype), hi.amp2, hi.ls) * mask[:, None]
+        mu = hi.mean[:, None] + (kx.mT @ alpha)[..., 0]
+        beta = torch.linalg.solve_triangular(l, kx, upper=False)
+        var = (hi.amp2[:, None] * (1.0 + _effective_jitter(x.shape[0]))
+               - (beta * beta).sum(-2))
+        out.append((lp, mu, var))
+        del l, kx, beta
+    return tuple(torch.cat(t) for t in zip(*out))
+
+
+def agree(outs, prefix, label):
+    """Every rank's arrays under ``prefix`` equal rank 0's bit for bit."""
+    first = outs[0][1]
+    keys = [k for k in first if k.startswith(prefix)]
+    for r, (_, arr) in enumerate(outs[1:], 1):
+        for k in keys:
+            if (arr[k].dtype, arr[k].shape, arr[k].tobytes()) != (
+                    first[k].dtype, first[k].shape, first[k].tobytes()):
+                fail(f"{label}: rank {r} differs from rank 0 in {k}")
+    return len(keys)
+
+
+def run_large_chains(torch):
+    """The single-rank chains path (``suggest_step``, chain_chunk 0) at
+    the large preset on the obs step's inputs and seed: its seconds,
+    stages and launches (B1 at [4, 10240, 10240])."""
+    from spearmint_tpu_torch.engine.suggest import (
+        SuggestConfig, init_chain_states, suggest_step,
+    )
+
+    p, dev = LARGE, "cuda"
+    args = padded_problem(torch, p["n"], p["d"], p["cands"])
+    cfg = SuggestConfig(mcmc_iters=1, optimize=False, explicit_inverse=False)
+    h0 = init_chain_states(torch.tensor(args[1], device=dev),
+                           torch.tensor(args[2], device=dev), p["d"],
+                           p["chains"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res, rec = obs_stage(torch, "large_chains", lambda st: suggest_step(
+        gen, h0, *args, cfg, device=dev, stage_times=st), [])
+    rec.update(n=p["n"], pad=len(args[1]), chains=p["chains"],
+               cands=p["cands"], n_ok=int(res.n_ok),
+               best_cand=int(res.best_cand))
+    return rec, res
+
+
+def run_distributed(torch):
+    """Phase 14: the distributed paths on two gloo ranks sharing the card
+    (not multi-GPU scaling: the collectives are staged through the host).
+    Before the ranks start, this process runs the single-rank chains path
+    at the large preset and the unsharded flagship step the chains mesh
+    is held to; then it gates what the ranks report.  Returns the
+    launches of each distributed path."""
+    from spearmint_tpu_torch.engine.suggest import (
+        init_chain_states, suggest_step,
+    )
+
+    dev = "cuda"
+    large_rec, large_res = run_large_chains(torch)
+    emit(large_rec)
+    args, cfg = mesh_problem(torch)
+    h0 = init_chain_states(torch.tensor(args[1], device=dev),
+                           torch.tensor(args[2], device=dev),
+                           FLAGSHIP["d"], FLAGSHIP["chains"])
+    def unsharded(lo, hi, chains=FLAGSHIP["chains"]):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return suggest_step(gen, type(h0)(*(a[:chains] for a in h0)),
+                            *args[:5], args[5][lo:hi], args[6][lo:hi], cfg,
+                            device=dev)
+
+    want = unsharded(0, FLAGSHIP["cands"])
+    want_ei = want.ei.cpu().numpy()
+    want_best, want_ok = int(want.best_cand), int(want.n_ok)
+    want_h = {f"{fam}.{k}": a.cpu().numpy()
+              for fam in ("hypers", "samples")
+              for k, a in getattr(want, fam)._asdict().items()}
+    # the unsharded step on each half of the candidates: what the (1, 2)
+    # mesh's ranks compute, and how far splitting the candidates alone
+    # moves the unsharded EI
+    half = FLAGSHIP["cands"] // 2
+    split_ei = np.concatenate([unsharded(lo, lo + half).ei.cpu().numpy()
+                               for lo in (0, half)])
+    # the control: a wrong average, over the first half of the chains only
+    wrong_ei = unsharded(0, FLAGSHIP["cands"],
+                         FLAGSHIP["chains"] // 2).ei.cpu().numpy()
+    large_ei = large_res.ei.cpu().numpy()
+    large_h = {k: a.cpu().numpy() for k, a in large_res.hypers._asdict()
+               .items()}
+    large_best = int(large_res.best_cand)
+    del want, large_res, h0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        outs = run_ranks(out_dir)
+    ranks_s = time.perf_counter() - t0
+    for recs, _ in outs:
+        for rec in recs:
+            emit({**rec, "rank_t_s": rec.pop("t_s")})
+    by = {(rec["phase"], rec.get("chooser"), rec["rank"]): rec
+          for recs, _ in outs for rec in recs}
+    arr = outs[0][1]
+
+    # ---- obs_large: agreement, n_ok, lp and posterior against float64
+    agree(outs, "obs_large.", "obs_large")
+    p = LARGE
+    xp, yp, mask, _, _, cand, _ = padded_problem(torch, p["n"], p["d"],
+                                                 p["cands"])
+    x, y = torch.tensor(xp, device=dev), torch.tensor(yp, device=dev)
+    m = torch.tensor(mask, device=dev)
+    samples = hypers_on(torch, arr, "obs_large.samples", dev)
+    info = assembled_f64_info(torch, x, m, samples)
+    rec = by[("obs_large", None, 0)]
+    h0 = init_chain_states(y, m, p["d"], 1)
+    lp64 = dense_posterior(torch, x, y, m,
+                           torch.tensor(cand[:1], device=dev), h0)[0]
+    lp0 = torch.tensor(arr["obs_large.lp0"], device=dev).double()
+    # the posterior against float64: each reading's mean and variance
+    # error (max abs over the float64 max, per lane; NaN where a
+    # factorization failed), the TF32 control apart; and the same errors
+    # of a dense float32 library factorization, float32's own floor here
+    def errors(got, ref):
+        return [[absmax(g[i], r[i]) / float(r[i].abs().max())
+                 for i in range(len(r))] for g, r in zip(got, ref)]
+
+    post, dense32 = {}, {}
+    for key, h, seed, _ in posterior_readings(torch, None, samples):
+        xs, ys, ms, cs = posterior_problem(torch, seed)
+        ref = dense_posterior(torch, xs, ys, ms, cs, h)[1:]
+        post[key] = errors([torch.tensor(arr[f"obs_large.post.{key}.{f}"],
+                                         device=dev) for f in ("mu", "var")],
+                           ref)
+        if key != "tf32":
+            dense32[key] = errors(dense_posterior(torch, xs, ys, ms, cs, h,
+                                                  torch.float32)[1:], ref)
+    control = post.pop("tf32")
+    mu_err = float(np.max([v for mu, _ in post.values() for v in mu]))
+    var_err = float(np.max([v for _, var in post.values() for v in var]))
+    ev = by[("obs_large_eval", None, 0)]
+    check = dict(
+        phase="obs_large_check", f64_info=info,
+        n_ok=rec["n_ok"], n_ok_expected=p["chains"] - sum(i != 0
+                                                          for i in info),
+        lp0_rel=float(((lp0 - lp64[0]).abs() / lp64[0].abs()).max()),
+        mu_err=mu_err, var_err=var_err, posterior_readings=post,
+        dense_f32_readings=dense32,
+        tf32_control={"mu": control[0][0], "var": control[1][0]},
+        tolerance={"lp_rel": LP_TOL, "mu": POSTERIOR_TOL,
+                   "var": POSTERIOR_TOL},
+        bytes_per_eval=ev["collective_bytes"],
+        collective_s_per_eval=ev["collective_s"], eval_s=ev["seconds"],
+        vs_chains=dict(
+            seconds=large_rec["seconds"], obs_seconds=rec["seconds"],
+            best_cand=[rec["best_cand"], large_best],
+            ei_max_abs_diff=float(np.abs(arr["obs_large.ei"]
+                                         - large_ei).max()),
+            ei_max=float(large_ei.max()),
+            hypers_max_rel_diff={
+                k: float(np.max(np.abs(arr[f"obs_large.hypers.{k}"] - v)
+                                / np.maximum(np.abs(v), 1e-30)))
+                for k, v in large_h.items()}))
+    emit(check)
+    if not (rec["ei_finite"] and rec["n_ok"] == check["n_ok_expected"]
+            and check["lp0_rel"] <= LP_TOL and mu_err <= POSTERIOR_TOL
+            and var_err <= POSTERIOR_TOL):
+        fail(f"obs_large: {check}")
+
+    # ---- obs_per_sec: agreement, finite, n_ok against float64
+    agree(outs, "obs_per_sec.", "obs_per_sec")
+    ps = PER_SEC
+    xp, yp, tp, mask, _ = per_sec_problem(ps["n"], ps["d"], ps["cands"])
+    x, m = torch.tensor(xp, device=dev), torch.tensor(mask, device=dev)
+    bad = [a != 0 or b != 0 for a, b in zip(
+        assembled_f64_info(torch, x, m, hypers_on(
+            torch, arr, "obs_per_sec.samples", dev)),
+        assembled_f64_info(torch, x, m, hypers_on(
+            torch, arr, "obs_per_sec.time_samples", dev)))]
+    rec = by[("obs_per_sec", None, 0)]
+    if (not rec["ei_finite"]
+            or rec["n_ok"] != ps["chains"] - sum(bad)):
+        fail(f"obs_per_sec: n_ok {rec['n_ok']}, indefinite {bad}; {rec}")
+
+    # ---- obs_chooser: the routes, and the same suggestion on every rank
+    agree(outs, "obs_chooser.", "obs_chooser")
+    for name in ("GPEIOptChooser", "GPEIperSecChooser"):
+        rec = by[("obs_chooser", name, 0)]
+        if rec["modes"] != ["obs_shard", "chains"] or min(rec["n_ok"]) < 1:
+            fail(f"obs_chooser {name}: {rec}")
+
+    # ---- chains_mesh: kernels on every rank, agreement, the unsharded step
+    mesh_launches = {}
+    for shape in MESH_SHAPES:
+        label = f"chains_mesh_{shape[0]}x{shape[1]}"
+        agree(outs, label + ".", label)
+        for r in range(RANKS):
+            counts = by[(label, None, r)]["launches"]
+            if min(counts[k] for k in FLAGSHIP_PATH) <= 0:
+                fail(f"{label}: rank {r} launched no kernel of the path: "
+                     f"{counts}")
+            for k, v in counts.items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + v
+        got = arr[label + ".ei"]
+        # chain states: bit for bit where every rank runs every chain on
+        # the same generator, tests/test_sharding.py's tolerance where the
+        # chains are split (a batch of 5 rounds apart from one of 10)
+        bitwise = shape[0] == 1
+        h_diff = {k: float(np.max(np.abs(arr[f"{label}.{k}"] - v)
+                                  - MESH_RTOL * np.abs(v)))
+                  for k, v in want_h.items()}
+        h_ok = all((np.array_equal(arr[f"{label}.{k}"], v) if bitwise
+                    else h_diff[k] <= MESH_ATOL) for k, v in want_h.items())
+        rec = dict(
+            phase=label + "_check", best_cand=[
+                int(arr[label + ".best_cand"]), want_best],
+            n_ok=[int(arr[label + ".n_ok"]), want_ok],
+            states_bitwise=bitwise, states_ok=h_ok,
+            states_excess_over_rtol=h_diff,
+            ei_rel_to_max=float(np.max(np.abs(got - want_ei))
+                                / np.max(np.abs(want_ei))),
+            ei_max_rel=float(np.max(np.abs(got - want_ei)
+                                    / np.maximum(np.abs(want_ei), 1e-30))),
+            split_noise_rel_to_max=float(np.max(np.abs(split_ei - want_ei))
+                                         / np.max(np.abs(want_ei))),
+            split_noise_max_rel=float(np.max(
+                np.abs(split_ei - want_ei)
+                / np.maximum(np.abs(want_ei), 1e-30))),
+            states_equal=all(np.array_equal(arr[f"{label}.{k}"], v)
+                             for k, v in want_h.items()),
+            ei_equals_split=bool(np.array_equal(got, split_ei)),
+            control_half_chains_rel_to_max=float(
+                np.max(np.abs(wrong_ei - want_ei)) / np.max(np.abs(want_ei))),
+            ei_max=float(np.max(np.abs(want_ei))),
+            tolerance={"states_rtol": MESH_RTOL, "states_atol": MESH_ATOL,
+                       "ei_rel_to_max": MESH_EI_REL})
+        emit(rec)
+        ei_ok = (rec["ei_equals_split"] if bitwise
+                 else rec["ei_rel_to_max"] <= MESH_EI_REL)
+        if (not h_ok or not ei_ok or rec["best_cand"][0] != want_best
+                or rec["n_ok"] != [FLAGSHIP["chains"]] * 2):
+            fail(f"{label}: {rec}")
+    emit({"phase": "distributed", "ranks": RANKS, "ranks_s": ranks_s,
+          "backend": "gloo, two ranks on one card (not multi-GPU "
+                     "scaling)"})
+    obs_launches = {
+        ph: {k: sum(by[(ph, None, r)]["launches"][k] for r in range(RANKS))
+             for k in by[(ph, None, 0)]["launches"]}
+        for ph in ("obs_large", "obs_per_sec")}
+    for ph, counts in obs_launches.items():
+        if max(counts.values()) != 0:
+            fail(f"{ph}: the obs path launched a kernel: {counts}")
+    chooser = {}
+    for name in ("GPEIOptChooser", "GPEIperSecChooser"):
+        for r in range(RANKS):
+            for counts in by[("obs_chooser", name, r)]["launches"]:
+                for k, v in counts.items():
+                    chooser[k] = chooser.get(k, 0) + v
+    return {"large_chains": large_rec["launches"],
+            "chains_mesh": mesh_launches, **obs_launches,
+            "obs_chooser": chooser}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2351,6 +3035,11 @@ def main(argv) -> int:
         return 2
     import spearmint_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from spearmint_tpu_torch.ops import build, gp_kernels as gk
+
+    if argv[:1] == ["--rank"]:
+        opts = dict(zip(argv[0::2], argv[1::2]))
+        return rank_main(torch, int(opts["--rank"]), int(opts["--world"]),
+                         opts["--store"], opts["--out"])
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -2420,7 +3109,8 @@ def main(argv) -> int:
              "harness_async_per_sec": run_async_harness(
                  torch, "harness_async_per_sec", "GPEIperSecChooser",
                  5)["launches"],
-             "lite_branin": run_lite(torch)["launches"]}
+             "lite_branin": run_lite(torch)["launches"],
+             **run_distributed(torch)}
     b1_split(torch, gk, records["B1"])
 
     src = "spearmint_tpu_torch/ops/csrc/"

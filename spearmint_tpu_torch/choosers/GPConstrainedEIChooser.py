@@ -157,8 +157,8 @@ class GPConstrainedEIChooser(GPEIOptChooser):
         if n_ok == 0:
             # every sample's factorization failed: the average carries no
             # signal — fall back to grid order and say so
-            self.events.emit("suggest_degenerate",
-                             chooser=type(self).__name__, n_obs=int(n))
+            self._emit("suggest_degenerate",
+                       chooser=type(self).__name__, n_obs=int(n))
             return int(candidates[0])
 
         return self._choose(candidates, res.best_cand, res.best_cand_acq,

@@ -17,8 +17,19 @@ other.  The random streams differ (``torch.Generator`` seeded with
 Band mode (``band_joint_min`` > 0) routes as the JAX chooser does, with
 the card in place of the TPU (``band_gate``): on the CPU the chooser runs
 dense, as the JAX one does off the TPU.  Not ported yet, and refused with
-NotImplementedError: ``profile_dir`` (ROADMAP A6) and the
-observation-sharded path across several GPUs (ROADMAP A10).
+NotImplementedError: ``profile_dir`` (ROADMAP A6).
+
+Several ranks (``engine/distributed``): every rank runs the same ``next``
+on the same inputs.  From pad ``obs_shard_min``, with no pending jobs and
+a rank count that divides the pad, the suggestion runs observation-sharded
+over the ranks of the default group (``engine/obs_shard.use_obs_gate``;
+the event's ``mode`` is ``obs_shard``), else every rank runs the chains
+path alone (``mode`` ``chains``); the burn-in runs unsharded on every
+rank, as the JAX chooser's does.  The count is the group's ranks, not the
+GPUs a process sees.  Only the coordinator writes the state file and the
+events; the other ranks keep the state in memory, and every rank waits at
+a barrier after the write, so a chooser made anew on any rank reads the
+same state.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ import numpy as np
 import torch
 
 from spearmint_tpu_torch.convert import hypers_from_numpy, hypers_to_numpy
+from spearmint_tpu_torch.engine import distributed
+from spearmint_tpu_torch.engine.obs_shard import use_obs_gate
 from spearmint_tpu_torch.store.locker import Locker
 from spearmint_tpu_torch.utils.args import unpack_args
 from spearmint_tpu_torch.utils.events import EventLog
@@ -38,14 +51,6 @@ from spearmint_tpu_torch.utils.platform import resolve_device
 
 def init(expt_dir, arg_string=""):
     return GPEIOptChooser(expt_dir, **unpack_args(arg_string))
-
-
-def use_obs_gate(obs_shard_min: int, ndev: int, pad: int,
-                 n_pending: int) -> bool:
-    """The JAX package's obs-mesh routing decision
-    (``engine/obs_shard.use_obs_gate``), kept to refuse what it routes."""
-    return (obs_shard_min > 0 and ndev > 1 and pad >= obs_shard_min
-            and pad % ndev == 0 and n_pending == 0)
 
 
 def band_gate(band_joint_min: int, pad: int, use_obs: bool,
@@ -130,11 +135,16 @@ class GPEIOptChooser:
         return hypers_to_numpy(self._hypers)
 
     def _save_state(self):
-        with self.locker:
-            tmp = self.state_file + ".tmp.npz"
-            np.savez(tmp, **self._state_arrays(),
-                     key_state=self._key_state, burned_in=self._burned_in)
-            os.replace(tmp, self.state_file)
+        """The coordinator writes; with several ranks, all wait for it."""
+        if distributed.is_coordinator():
+            with self.locker:
+                tmp = self.state_file + ".tmp.npz"
+                np.savez(tmp, **self._state_arrays(),
+                         key_state=self._key_state,
+                         burned_in=self._burned_in)
+                os.replace(tmp, self.state_file)
+        if distributed.world_size() > 1:
+            torch.distributed.barrier()
 
     # ------------------------------------------------------ shared helpers
     def _memory_policy(self, pad):
@@ -185,15 +195,19 @@ class GPEIOptChooser:
         cand_p[:c] = cand
         return pend_p, np.arange(ppad) < p, cand_p, np.arange(cpad) < c
 
-    def _refuse_obs_route(self, pad, n_pending):
-        """The JAX chooser sends this pad to the observation-sharded path
-        on several GPUs, which is not ported (ROADMAP A10)."""
-        ndev = (torch.cuda.device_count() if self.device.type == "cuda"
-                else 1)
-        if use_obs_gate(self.obs_shard_min, ndev, pad, n_pending):
-            raise NotImplementedError(
-                f"pad {pad} on {ndev} GPUs routes to the observation-"
-                "sharded path, which is not ported yet — ROADMAP A10")
+    def _use_obs(self, pad, n_pending) -> bool:
+        """The obs-sharded route: ``use_obs_gate`` over the default
+        group's ranks."""
+        return use_obs_gate(self.obs_shard_min, distributed.world_size(),
+                            pad, n_pending)
+
+    def _obs_step(self, cfg, factory="sharded_suggest_obs"):
+        """The obs-sharded step over every rank of the default group
+        (``factory``: the per-sec chooser's ``sharded_suggest_per_sec``)."""
+        from spearmint_tpu_torch.engine import obs_shard
+
+        return getattr(obs_shard, factory)(
+            obs_shard.make_obs_mesh(device=self.device), cfg)
 
     def _choose(self, candidates, best_cand, best_value, x_opt, opt_value):
         """The refined point as an ``(value, x)`` invention if it beats the
@@ -205,8 +219,14 @@ class GPEIOptChooser:
             return opt_value, x_opt
         return int(candidates[int(best_cand)])
 
+    def _emit(self, kind, **fields):
+        """An event of the coordinator: one line a suggestion, however
+        many ranks run it."""
+        if distributed.is_coordinator():
+            self.events.emit(kind, **fields)
+
     def _emit_suggest(self, latency, n_obs, n_pending, n_cand, **extra):
-        self.events.emit(
+        self._emit(
             "suggest", chooser=type(self).__name__,
             latency_s=round(latency, 4), n_obs=int(n_obs),
             n_pending=int(n_pending), n_cand=int(n_cand), **extra)
@@ -246,7 +266,7 @@ class GPEIOptChooser:
         pend_p, pend_mask, cand_p, cand_mask = (
             self._pad_pending_and_candidates(grid, pending, candidates, pad))
         p, c = len(pending), len(candidates)
-        self._refuse_obs_route(pad, p)
+        use_obs = self._use_obs(pad, p)
 
         dev = self.device
         xt = torch.as_tensor(xp, device=dev)
@@ -276,12 +296,15 @@ class GPEIOptChooser:
             n_fantasies=self.pending_samples,
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
-            # use_obs is False: that route was refused above
-            band_joint=band_gate(self.band_joint_min, pad, False, dev),
+            band_joint=band_gate(self.band_joint_min, pad, use_obs, dev),
         )
         t0 = time.perf_counter()
-        res = suggest_step(gen, self._hypers, xt, yt, mt, pend_p, pend_mask,
-                           cand_p, cand_mask, cfg, device=dev)
+        if use_obs:
+            res = self._obs_step(cfg)(gen, self._hypers, xt, yt, mt, cand_p,
+                                      cand_mask)
+        else:
+            res = suggest_step(gen, self._hypers, xt, yt, mt, pend_p,
+                               pend_mask, cand_p, cand_mask, cfg, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         latency = time.perf_counter() - t0
@@ -298,14 +321,15 @@ class GPEIOptChooser:
             ei_best=float(res.best_cand_ei), ei_opt=float(res.ei_opt),
             amp2_med=float(res.hypers.amp2.median()),
             noise_med=float(res.hypers.noise.median()),
-            mode="chains", n_ok=n_ok, device=str(dev),
+            mode="obs_shard" if use_obs else "chains", n_ok=n_ok,
+            device=str(dev),
             band_joint=cfg.band_joint,
         )
         if n_ok == 0:
             # every sample's factorization failed: the averaged EI carries
             # no signal — fall back to grid order and say so
-            self.events.emit("suggest_degenerate",
-                             chooser=type(self).__name__, n_obs=int(n))
+            self._emit("suggest_degenerate",
+                       chooser=type(self).__name__, n_obs=int(n))
             return int(candidates[0])
 
         return self._choose(candidates, res.best_cand, res.best_cand_ei,

@@ -19,8 +19,10 @@ Two deliberate differences from the JAX chooser, both reference defects:
 The state file and its npz keys are the JAX chooser's
 (``GPEIperSecChooser_state.npz``: the flagship's keys plus ``time_mean,
 time_amp2, time_noise, time_ls``), so an experiment written by either
-package resumes under the other.  The observation-sharded path across
-several GPUs is refused as in the flagship (ROADMAP A10).
+package resumes under the other.  With several ranks the suggestion
+routes as the flagship's does (``engine/obs_shard.sharded_suggest_per_sec``
+from pad ``obs_shard_min`` with no pending jobs), and only the coordinator
+writes the state and the events.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ class GPEIperSecChooser(GPEIOptChooser):
         pend_p, pend_mask, cand_p, cand_mask = (
             self._pad_pending_and_candidates(grid, pending, candidates, pad))
         p, c = len(pending), len(candidates)
-        self._refuse_obs_route(pad, p)
+        use_obs = self._use_obs(pad, p)
 
         dev = self.device
         xt = torch.as_tensor(xp, device=dev)
@@ -136,9 +138,14 @@ class GPEIperSecChooser(GPEIOptChooser):
             explicit_inverse=explicit_inv,
         )
         t0 = time.perf_counter()
-        res = suggest_step_per_sec(
-            gen, self._hypers, self._time_hypers, xt, yt, tt, mt, pend_p,
-            pend_mask, cand_p, cand_mask, cfg, device=dev)
+        if use_obs:
+            res = self._obs_step(cfg, "sharded_suggest_per_sec")(
+                gen, self._hypers, self._time_hypers, xt, yt, tt, mt, cand_p,
+                cand_mask)
+        else:
+            res = suggest_step_per_sec(
+                gen, self._hypers, self._time_hypers, xt, yt, tt, mt, pend_p,
+                pend_mask, cand_p, cand_mask, cfg, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         latency = time.perf_counter() - t0
@@ -154,14 +161,15 @@ class GPEIperSecChooser(GPEIOptChooser):
             latency, n, p, c,
             ei_best=float(res.best_cand_ei), ei_opt=float(res.ei_opt),
             time_amp2_med=float(res.time_hypers.amp2.median()),
-            mode="chains", chain_chunk=chain_chunk, n_ok=n_ok,
+            mode="obs_shard" if use_obs else "chains",
+            chain_chunk=chain_chunk, n_ok=n_ok,
             device=str(dev),
         )
         if n_ok == 0:
             # every sample's factorization failed: the average carries no
             # signal — fall back to grid order and say so
-            self.events.emit("suggest_degenerate",
-                             chooser=type(self).__name__, n_obs=int(n))
+            self._emit("suggest_degenerate",
+                       chooser=type(self).__name__, n_obs=int(n))
             return int(candidates[0])
 
         return self._choose(candidates, res.best_cand, res.best_cand_ei,

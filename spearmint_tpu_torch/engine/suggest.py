@@ -29,6 +29,7 @@ from spearmint_tpu_torch.core.likelihood import GPHypers
 from spearmint_tpu_torch.mcmc.chains import (
     MCMCConfig, init_hypers, sample_hypers_lp, seed_lp,
 )
+from spearmint_tpu_torch.mcmc.slice import ChainShard, draw_rows
 from spearmint_tpu_torch.utils.platform import resolve_device
 
 
@@ -73,13 +74,22 @@ class SuggestResult(NamedTuple):
                                # signal (callers fall back to grid order)
 
 
-def nan_robust_mean(samples: torch.Tensor, ok: torch.Tensor):
-    """Mean over axis 0 of the usable (``ok``, finite) samples, and n_ok."""
+def nan_robust_mean(samples: torch.Tensor, ok: torch.Tensor, reduce=None):
+    """Mean over axis 0 of the usable (``ok``, finite) samples, and n_ok.
+
+    ``reduce`` (a sum over ranks, ``engine/mesh``) takes the local sums and
+    count when the samples are split over ranks."""
     n_ok_true = ok.to(torch.int32).sum()
-    n_ok = torch.clamp_min(n_ok_true.to(samples.dtype), 1.0)
     ok_b = ok.reshape(ok.shape + (1,) * (samples.ndim - 1))
     samples = torch.where(ok_b & torch.isfinite(samples), samples, 0.0)
-    return samples.sum(0) / n_ok, n_ok_true
+    total = samples.sum(0)
+    if reduce is not None:
+        packed = reduce(torch.cat([total.reshape(-1),
+                                   n_ok_true.to(total.dtype)[None]]))
+        total = packed[:-1].reshape(total.shape)
+        n_ok_true = packed[-1].to(torch.int32)
+    n_ok = torch.clamp_min(n_ok_true.to(samples.dtype), 1.0)
+    return total / n_ok, n_ok_true
 
 
 def _groups(lead: int, chunk: int):
@@ -126,16 +136,20 @@ def _mark(stage_times, name, t0, dev):
     return now
 
 
-def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig):
+def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig,
+                   mcmc: MCMCConfig | None = None):
     """``config.mcmc_iters`` carried sweeps of every chain, in groups of
-    ``chain_chunk``.  Returns (last states [chains], samples [S])."""
+    ``chain_chunk``, under ``mcmc`` (default ``config.mcmc``; the sharded
+    steps pass their own marginal or chain shard).  Returns (last states
+    [chains], samples [S])."""
+    mcmc = mcmc or config.mcmc
     h_parts, s_parts = [], []
     for sl in _groups(hypers.mean.shape[0], config.chain_chunk):
         h = _take(hypers, sl)
-        lp = seed_lp(x, y, mask, h, config.mcmc)
+        lp = seed_lp(x, y, mask, h, mcmc)
         its = []
         for _ in range(config.mcmc_iters):
-            h, lp = sample_hypers_lp(gen, h, lp, x, y, mask, config.mcmc)
+            h, lp = sample_hypers_lp(gen, h, lp, x, y, mask, mcmc)
             its.append(h)
         h_parts.append(h)
         s_parts.append(_stack_iters(its))
@@ -151,19 +165,23 @@ def _value_caches(x, y, mask, flat: GPHypers, config: SuggestConfig):
 
 
 def _pending_caches(gen, x, y, mask, pend, pend_mask, flat: GPHypers,
-                    config: SuggestConfig):
+                    config: SuggestConfig, shard: ChainShard | None = None):
     """The value caches of a suggestion: with pending jobs, ``n_fantasies``
     fantasized outcomes per sample over the augmented data (obs ∪ pend)
-    sharing one factorization; without, ``_value_caches``.  Returns
-    (cache, x_all, mask_all), the data the cache's EI reads."""
+    sharing one factorization; without, ``_value_caches``.  With ``shard``
+    the samples are those of this rank's chains, and the fantasy draws are
+    made for every chain's and kept for these.  Returns (cache, x_all,
+    mask_all), the data the cache's EI reads."""
     if not config.has_pending:
         return _value_caches(x, y, mask, flat, config), x, mask
     s = flat.mean.shape[0]
     x_all = torch.cat([x, pend], 0)
     mask_all = torch.cat([mask, pend_mask], 0)
     n_fant = config.n_fantasies
-    draws = torch.randn(s, n_fant, pend.shape[0], generator=gen,
-                        dtype=x.dtype, device=x.device)
+    it = config.mcmc_iters
+    rows = None if shard is None else ChainShard(
+        shard.lo * it, shard.hi * it, shard.total * it)
+    draws = draw_rows(torch.randn, gen, (s, n_fant, pend.shape[0]), x, rows)
     caches = []
     for sl in _groups(s, config.chain_chunk):
         hs = _take(flat, sl)
@@ -200,7 +218,14 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
     same device.  With ``stage_times`` (a dict) the device is synchronized
     at each stage boundary and the seconds of the mcmc / caches / ei /
     lbfgs stages are added to it."""
-    dev = resolve_device(device)
+    return _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
+                 config, resolve_device(device), stage_times)
+
+
+def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
+          config: SuggestConfig, dev, stage_times, mesh=None):
+    """``suggest_step`` on ``dev``; with ``mesh`` (``engine/mesh.Mesh``) on
+    this rank's chains and candidates, returning the whole result."""
 
     def put(a, dtype=torch.float32):
         return torch.as_tensor(a, device=dev).to(dtype)
@@ -209,28 +234,43 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
     mask, pend_mask = put(mask, torch.bool), put(pend_mask, torch.bool)
     cand_mask = put(cand_mask, torch.bool)
     hypers = GPHypers(*(put(a) for a in hypers))
-    chains = hypers.mean.shape[0]
-    iters = config.mcmc_iters
+    chains, c_all = hypers.mean.shape[0], cand.shape[0]
     kernel = config.kernel
+    shard, my_cand, reduce = None, cand, None
+    if mesh is not None:
+        shard = mesh.chain_shard(chains)
+        if shard is not None:
+            hypers = _take(hypers, slice(shard.lo, shard.hi))
+        lo, hi = mesh.rows("cand", c_all)
+        my_cand = cand[lo:hi]
+        reduce = mesh.sum_chains
     t0 = time.perf_counter()
 
     # ---- MCMC: chains batched, mcmc_iters carried sweeps ---------------
-    h_last, flat = _sample_chains(gen, hypers, x, y, mask, config)
-    s = chains * iters
+    h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
+                                  config.mcmc._replace(chain_shard=shard))
+    s = flat.mean.shape[0]
     t0 = _mark(stage_times, "mcmc", t0, dev)
 
     # ---- posterior caches (one factorization per sample) ---------------
     cache, x_all, mask_all = _pending_caches(gen, x, y, mask, pend,
-                                             pend_mask, flat, config)
+                                             pend_mask, flat, config, shard)
     t0 = _mark(stage_times, "caches", t0, dev)
 
     # ---- EI over the candidates, NaN-robust average over samples -------
-    ei_samples = ei_mod.ei_from_cache_chunked(cache, x_all, mask_all, cand,
-                                              kernel)   # [S, C] | [S, F, C]
-    if ei_samples.ndim == 3:
+    ei_samples = ei_mod.ei_from_cache_chunked(cache, x_all, mask_all,
+                                              my_cand, kernel)
+    if ei_samples.ndim == 3:                    # [S, C] | [S, F, C]
         ei_samples = ei_samples.mean(1)
     ok = torch.isfinite(cache.alpha.reshape(s, -1)).all(1)
-    ei_mean, n_ok_true = nan_robust_mean(ei_samples, ok)
+    ei_mean, n_ok_true = nan_robust_mean(ei_samples, ok, reduce)
+    if mesh is not None:
+        ei_mean = mesh.gather("cand", ei_mean, c_all)
+        h_last = GPHypers(*(mesh.gather("chains", a, chains)
+                            for a in h_last))
+        flat = GPHypers(*(mesh.gather("chains", a,
+                                      chains * config.mcmc_iters)
+                          for a in flat))
     n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
     ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
     best_cand = torch.argmax(ei_masked)
@@ -239,14 +279,17 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI --------
     if config.optimize:
-        def neg_avg_ei(pts):
+        def ei_sum(pts):
             eis = ei_mod.ei_from_cache(cache, x_all, mask_all, pts, kernel)
             if eis.ndim == 3:
                 eis = eis.mean(1)
             eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
-            return -eis.sum(0) / n_ok
+            return eis.sum(0)
 
-        x_opt, ei_opt = _refine(neg_avg_ei, cand, ei_masked, config)
+        if mesh is not None:
+            ei_sum = mesh.sum_chains_grad(ei_sum)
+        x_opt, ei_opt = _refine(lambda pts: -ei_sum(pts) / n_ok, cand,
+                                ei_masked, config)
     else:
         x_opt = cand[best_cand]
         ei_opt = best_cand_ei

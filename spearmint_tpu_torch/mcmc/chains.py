@@ -24,7 +24,7 @@ import torch
 from spearmint_tpu_torch.core import linalg, priors
 from spearmint_tpu_torch.core.kernels import matern52
 from spearmint_tpu_torch.core.likelihood import GPHypers, log_marginal
-from spearmint_tpu_torch.mcmc.slice import slice_sample
+from spearmint_tpu_torch.mcmc.slice import ChainShard, slice_sample
 from spearmint_tpu_torch.ops.band import band_marginal_factory
 
 
@@ -42,6 +42,9 @@ class MCMCConfig(NamedTuple):
     # and n % band_block == 0 (every pad bucket ≥ 512 is).
     band_joint: bool = False
     band_block: int = 128
+    # The chain batch is this rank's rows of a batch split over a process
+    # group (engine/mesh): draws at the global shape, a global loop exit.
+    chain_shard: ChainShard | None = None
 
 
 def init_hypers(y: torch.Tensor, mask: torch.Tensor, ndim: int) -> GPHypers:
@@ -128,7 +131,7 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
         return _joint_logprob(vec, x, y, mask, hypers.ls, config, marginal3)
 
     vec, lp_joint = slice_sample(gen, vec0, joint_lp, compwise=False,
-                                 lp0=lp0_joint)
+                                 lp0=lp0_joint, shard=config.chain_shard)
     mean, amp2 = vec[:, 0], vec[:, 1]
     noise = (torch.full_like(mean, priors.DEFAULT_NOISE) if config.noiseless
              else vec[:, 2])
@@ -140,7 +143,7 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
     lp0_ls = (None if config.band_joint
               else lp_joint - _joint_prior_terms(amp2, noise, config))
     ls, lp_ls = slice_sample(gen, hypers.ls, ls_lp, compwise=True,
-                             lp0=lp0_ls)
+                             lp0=lp0_ls, shard=config.chain_shard)
     return GPHypers(mean, amp2, noise, ls), lp_ls
 
 

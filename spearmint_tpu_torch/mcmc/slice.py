@@ -14,13 +14,21 @@ their state under a mask (as lanes of the vmapped ``while_loop`` do) and
 the loop ends when every chain is DONE — one host read per step.
 Randomness comes from a ``torch.Generator``: the draws differ from
 ``jax.random``'s, so the sampler is held to the JAX one in distribution.
+
+With a ``ChainShard`` the chain batch is one rank's rows of a batch split
+over a process group (``engine/mesh``): every draw is made at the global
+shape and the rank keeps its rows, and the loop ends when the chains of
+every rank are DONE (one all-reduce per step), so each rank's chains take
+exactly the steps and draws they take unsharded, and the ranks make the
+same collective calls.  Without one, nothing changes.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 MAX_STEPS_OUT = 1000
 MAX_SHRINK = 64
@@ -28,9 +36,36 @@ MAX_SHRINK = 64
 _PH_LO, _PH_UP, _PH_SHRINK, _PH_DONE = 0, 1, 2, 3
 
 
-def _uniform(gen, like: torch.Tensor) -> torch.Tensor:
-    return torch.rand(like.shape[0], generator=gen, dtype=like.dtype,
-                      device=like.device)
+class ChainShard(NamedTuple):
+    """Rows [lo, hi) of a batch of ``total`` chains that ``group`` splits."""
+
+    lo: int
+    hi: int
+    total: int
+    group: object = None
+
+
+def draw_rows(fn, gen, shape, like, shard: ChainShard | None):
+    """``fn`` (torch.rand / randn) over ``shape``, whose leading axis is the
+    chain batch: at the global batch, and this rank's rows, when sharded."""
+    if shard is None:
+        return fn(shape, generator=gen, dtype=like.dtype, device=like.device)
+    out = fn((shard.total,) + tuple(shape[1:]), generator=gen,
+             dtype=like.dtype, device=like.device)
+    return out[shard.lo:shard.hi]
+
+
+def _uniform(gen, like: torch.Tensor, shard=None) -> torch.Tensor:
+    return draw_rows(torch.rand, gen, (like.shape[0],), like, shard)
+
+
+def _any_running(phase: torch.Tensor, shard: ChainShard | None) -> bool:
+    """Whether a chain of the batch (of every rank, when sharded) is not
+    DONE."""
+    running = (phase < _PH_DONE).any().to(torch.int32)
+    if shard is not None:
+        dist.all_reduce(running, op=dist.ReduceOp.MAX, group=shard.group)
+    return bool(running)
 
 
 def _nan_to_ninf(lp: torch.Tensor) -> torch.Tensor:
@@ -38,7 +73,7 @@ def _nan_to_ninf(lp: torch.Tensor) -> torch.Tensor:
 
 
 def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
-                     max_steps_out, max_shrink, lp0=None):
+                     max_steps_out, max_shrink, lp0=None, shard=None):
     """One slice move of every chain of x0 [K, dim] along direction [K, dim].
 
     Returns (x_new [K, dim], logprob(x_new) [K]).  ``lp0`` ([K], the
@@ -48,11 +83,11 @@ def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
     def dir_lp(z):
         return _nan_to_ninf(logprob(x0 + z[:, None] * direction))
 
-    upper = sigma * _uniform(gen, x0)
+    upper = sigma * _uniform(gen, x0, shard)
     lower = upper - sigma
     if lp0 is None:
         lp0 = dir_lp(torch.zeros_like(upper))
-    llh_s = torch.log(_uniform(gen, x0)) + lp0
+    llh_s = torch.log(_uniform(gen, x0, shard)) + lp0
 
     # A chain whose current point has −inf density skips the expansion
     # (every finite bracket end would beat llh_s) and accepts the first
@@ -67,8 +102,8 @@ def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
     i_up = torch.zeros_like(phase)
     i_sh = torch.zeros_like(phase)
 
-    while bool((phase < _PH_DONE).any()):
-        z_prop = lower + (upper - lower) * _uniform(gen, x0)
+    while _any_running(phase, shard):
+        z_prop = lower + (upper - lower) * _uniform(gen, x0, shard)
         in_lo = phase == _PH_LO
         in_up = phase == _PH_UP
         in_sh = phase == _PH_SHRINK
@@ -110,21 +145,23 @@ def slice_sample(gen: torch.Generator, x0: torch.Tensor,
                  sigma: float = 1.0, step_out: bool = True,
                  max_steps_out: int = MAX_STEPS_OUT,
                  max_shrink: int = MAX_SHRINK, compwise: bool = False,
-                 lp0: torch.Tensor | None = None):
+                 lp0: torch.Tensor | None = None,
+                 shard: ChainShard | None = None):
     """One slice-sampling sweep of every chain of x0 [K, dim].
 
     ``logprob`` maps [K, dim] → [K].  compwise=True: one move per
     coordinate in a per-chain random order; compwise=False: one move along
     a per-chain random unit direction.  ``lp0`` ([K]) is the caller's known
-    ``logprob(x0)``.  Returns (x [K, dim], logprob(x) [K]).
+    ``logprob(x0)``.  ``shard``: x0 is this rank's rows of a split batch.
+    Returns (x [K, dim], logprob(x) [K]).
     """
     k_chains, dim = x0.shape
     kw = dict(sigma=sigma, step_out=step_out, max_steps_out=max_steps_out,
-              max_shrink=max_shrink)
+              max_shrink=max_shrink, shard=shard)
     if compwise:
         order = torch.argsort(
-            torch.rand(k_chains, dim, generator=gen, device=x0.device),
-            dim=1)
+            draw_rows(torch.rand, gen, (k_chains, dim),
+                  torch.empty((), device=x0.device), shard), dim=1)
         lp = _nan_to_ninf(logprob(x0) if lp0 is None else lp0)
         x = x0
         for t in range(dim):
@@ -133,8 +170,7 @@ def slice_sample(gen: torch.Generator, x0: torch.Tensor,
             x, lp = _direction_slice(gen, x, direction, logprob, lp0=lp,
                                      **kw)
         return x, lp
-    direction = torch.randn(k_chains, dim, generator=gen, dtype=x0.dtype,
-                            device=x0.device)
+    direction = draw_rows(torch.randn, gen, (k_chains, dim), x0, shard)
     direction = direction / torch.sqrt((direction ** 2).sum(-1, keepdim=True))
     if lp0 is not None:
         lp0 = _nan_to_ninf(lp0)
