@@ -168,6 +168,25 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               device synchronize), peak memory per rank, and the obs and
               chains paths side by side at the large preset (not gated).
               A child that fails or runs out of time fails the run.
+ 15. profile_dir  after ``warm_profiler_sessions`` has brought the
+              process to ten profiler sessions (each around one B1 call
+              with the chooser's margins and lead-in, each holding B1's
+              device events and a lead-in record), GPEIOptChooser
+              (``profile_dir_branin``) and GPEIperSecChooser
+              (``profile_dir_per_sec``) on the harness's Branin data (450
+              completions, pad 512): a burn-in call, three consecutive
+              ``next`` calls with ``profile_dir`` set, three without.  Each
+              profiled call wrote exactly one trace that parses as JSON,
+              in which B1's, B2's and B3's ranges appear as often as
+              their launches in the call, each holding a device event;
+              trace sizes and the profiler's added latency are recorded.
+ 16. slice_counts  one carried flagship sweep (pad 5120, 10 chains)
+              with ``with_counts``: its lockstep evaluations (Σ over moves
+              of max over chains of lo + up + sh + 2) equal its B1
+              launches, and its states and lp equal bit for bit those of
+              the same sweep without counters; then the slice-count tool
+              (``tools/profile_slice_counts``) at the harness's n=450
+              Branin data (10 sweeps) and at the flagship (5).
 
 Every line before the last three is one JSON record, stamped with the
 seconds since the script began (``t_s``; a rank's own records carry its
@@ -187,6 +206,9 @@ result line:
                                              # band reduction, one lane
     python3 chip_smoke.py --small-pads       # chooser ``next`` at pads
                                              # 256 and 384, three routes
+    python3 chip_smoke.py --profiler-skew [SECONDS]  # profiler sessions
+                                             # without and with the idle
+                                             # margins, two processes
     python3 chip_smoke.py --vs DIR[,DIR...] [--seeds 0,1,2]
 
 builds the checkout's kernel sources and those in each DIR (an earlier
@@ -770,38 +792,49 @@ def trailing_flop(k, n, panel, tile):
     return 2.0 * k * flop
 
 
+def is_range(name):
+    """Whether a device event of ``prof.events()`` named ``name`` is the
+    span of a profiler range (the profiler's step, a stage, a kernel
+    wrapper, the lead-in), not a kernel."""
+    from spearmint_tpu_torch.utils import trace
+
+    return (name in trace.KERNEL_RANGES + (trace.LEAD_IN_RANGE,)
+            or name.startswith((trace.STAGE_PREFIX, "ProfilerStep")))
+
+
 def device_ms_by_kernel(torch, fn):
     """Device milliseconds of one call of ``fn`` by kernel name (template
-    arguments dropped), and the count of each; ``ProfilerStep*`` is the
-    recorded call's span, not a kernel.  The profiler records the second
-    of two calls: a session's first events can be lost when earlier
-    sessions ran in the process, so the first call is its warm-up step.
-    On an H100 the ninth and tenth sessions of one process came back with
-    no device events at all; such a session is run again, up to three
-    times, and an empty result is returned only if all three were."""
+    arguments dropped), and the count of each, range spans left out
+    (``is_range``).  The profiler records the second
+    of two calls.  Its step idles ``trace.MARGIN_S`` before the call and
+    after its synchronize: the device's timestamps can run up to 5.6 ms
+    early, and the profiler drops device events that seem to precede the
+    step (``--profiler-skew``; on an H100 such a session once came back
+    with no device events at all)."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            fn()
-            torch.cuda.synchronize()
-        ms, count = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                hit = re.search(r"(\w+_kernel)", e.name)
-                name = hit.group(1) if hit else e.name.split(" (")[0]
-                ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-                count[name] = count.get(name, 0) + 1
-        if ms:
-            break
+    from spearmint_tpu_torch.utils.trace import MARGIN_S
+
+    PROFILER_SESSIONS[0] += 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(MARGIN_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(MARGIN_S)
+    ms, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not is_range(e.name):
+            hit = re.search(r"(\w+_kernel)", e.name)
+            name = hit.group(1) if hit else e.name.split(" (")[0]
+            ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[name] = count.get(name, 0) + 1
     return {k: [v, count[k]] for k, v in sorted(ms.items(),
                                                 key=lambda kv: -kv[1])}
 
@@ -1094,9 +1127,9 @@ def reset_launches():
 
 
 def launch_counts():
-    from spearmint_tpu_torch.ops import band, gp_kernels
+    from spearmint_tpu_torch.utils.trace import kernel_launches
 
-    return {**gp_kernels.launches, **band.launches}
+    return kernel_launches()
 
 
 def run_suggest(torch, label, reps, n, d, chains, cands, n_pending=0,
@@ -1179,12 +1212,13 @@ def run_suggest(torch, label, reps, n, d, chains, cands, n_pending=0,
 
 def band_ranges():
     """The calls a band-mode suggestion is split by: the band reduction
-    (geqrf and GEMMs), B5, the assemblies of its inputs and of M, the dense
-    log marginal (B1: the ls move and its re-seed) and its M, the caches."""
+    (geqrf and GEMMs), the assemblies of B5's inputs and of M, the dense
+    log marginal (B1: the ls move and its re-seed) and its M, the caches;
+    B5 is read from its wrapper's own range, ``cr_logdet_q``."""
     from spearmint_tpu_torch.core import likelihood, linalg
     from spearmint_tpu_torch.ops import band
 
-    return [(band, "reduce_to_band"), (band, "cr_logdet_q"),
+    return [(band, "reduce_to_band"),
             (band, "_cr_assemble"), (band, "unit_cov_matrix"),
             (linalg, "fma_logdet_q"), (likelihood, "unit_cov_matrix"),
             (linalg, "cache_factor")]
@@ -1194,12 +1228,16 @@ def profile_step(torch, fn, top=8, ranges=()):
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time of all its kernels and their share of the wall time (the
     device's busy share; the profiler's own host cost lowers it), and the
-    kernels that took most device time, by name.  Each (module, name) of
-    ``ranges`` is wrapped in a ``record_function`` for the call, and the
-    device span of each (first kernel's start to last kernel's end, summed
-    over its calls) is reported with its call count."""
+    kernels that took most device time, by name (range spans left out,
+    ``is_range``).  The session idles ``trace.MARGIN_S`` at both ends.
+    Each (module, name) of ``ranges`` is wrapped in a ``record_function``
+    for the call, and the device span of each, and of each kernel
+    wrapper's own range (first kernel's start to last kernel's end,
+    summed over its calls), is reported with its call count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from spearmint_tpu_torch.utils import trace
 
     saved = []
     for mod, attr in ranges:
@@ -1212,12 +1250,15 @@ def profile_step(torch, fn, top=8, ranges=()):
         saved.append((mod, attr, orig))
         setattr(mod, attr, wrapped)
     try:
+        PROFILER_SESSIONS[0] += 1
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(trace.MARGIN_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            time.sleep(trace.MARGIN_S)
     finally:
         for mod, attr, orig in saved:
             setattr(mod, attr, orig)
@@ -1226,7 +1267,8 @@ def profile_step(torch, fn, top=8, ranges=()):
     for e in prof.events():
         # a range shows on the device as a span over its kernels: not a
         # kernel of its own
-        if e.device_type == DeviceType.CUDA and e.name not in names:
+        if (e.device_type == DeviceType.CUDA and e.name not in names
+                and not is_range(e.name)):
             name = e.name[:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
             count[name] = count.get(name, 0) + 1
@@ -1234,7 +1276,9 @@ def profile_step(torch, fn, top=8, ranges=()):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     split = {}
     for ev in prof.key_averages():
-        if ev.key in names:
+        # the kernel wrappers are ranges of their own names (B5 is
+        # ``cr_logdet_q``)
+        if ev.key in names or ev.key in trace.KERNEL_RANGES:
             dev_us = getattr(ev, "device_time_total", None)
             if dev_us is None:
                 dev_us = ev.cuda_time_total
@@ -3026,6 +3070,296 @@ def run_distributed(torch):
             "obs_chooser": chooser}
 
 
+# ------------------------------------- phases 15-16: the instruments
+# Profiler sessions this process has opened (``profile_step``,
+# ``device_ms_by_kernel``, ``warm_profiler_sessions``): the profile_dir
+# phase starts only after PROFILE_AFTER_SESSIONS of them, where sessions
+# of one process once came back with no device events.
+PROFILER_SESSIONS = [0]
+PROFILE_AFTER_SESSIONS = 10
+PROFILED_CALLS = 3
+
+
+def warm_profiler_sessions(torch):
+    """Short ``torch.profiler`` sessions, each around one B1 call at the
+    harness's pad 512 with the chooser's idle margins and lead-in
+    (``utils/trace``), until the process has opened
+    PROFILE_AFTER_SESSIONS; in each session's trace the B1 range must hold
+    device events and a lead-in record must be left.  Returns, per
+    session, [B1's device events, lead-in records lost]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spearmint_tpu_torch.ops import gp_kernels as gk
+    from spearmint_tpu_torch.utils import trace
+
+    m, d, r = well_conditioned(torch, 10, 512, seed=1)
+    held = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "warm.json")
+        while PROFILER_SESSIONS[0] < PROFILE_AFTER_SESSIONS:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(trace.MARGIN_S)
+                trace.lead_in("cuda")
+                gk.shifted_logdet_q(m, d, r)
+                torch.cuda.synchronize()
+                time.sleep(trace.MARGIN_S)
+            PROFILER_SESSIONS[0] += 1
+            prof.export_chrome_trace(path)
+            got = trace.ranges(trace.load(path),
+                               ("shifted_logdet_q", trace.LEAD_IN_RANGE))
+            b1 = got.get("shifted_logdet_q", [])
+            lead = got.get(trace.LEAD_IN_RANGE, [0])
+            held.append([b1, trace.LEAD_IN - lead[0]])
+            if len(b1) != 1 or b1[0] < 1 or lead[0] < 1:
+                fail(f"profiler session {PROFILER_SESSIONS[0]}: B1 range "
+                     f"device events {b1}, lead-in records {lead}")
+    return held
+
+
+def skew_child(torch, seconds, out_path):
+    """Back-to-back profiler sessions for ``seconds``, alternately with no
+    idle margin and with ``trace.MARGIN_S`` at each end, each around three
+    B1 calls at [10, 512, 512] and 200 small adds; per session, one JSON
+    line: its wall-clock start, margin, kernel launches and kernels in the
+    trace, and the least kernel start less its launch (µs; a kernel cannot
+    start before its launch, so a negative value is the device timestamps'
+    skew)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spearmint_tpu_torch.ops import gp_kernels as gk
+    from spearmint_tpu_torch.utils import trace
+
+    m, d, r = well_conditioned(torch, 10, 512, seed=0)
+    x = torch.zeros(64, device="cuda")
+
+    def work():
+        for _ in range(3):
+            gk.shifted_logdet_q(m, d, r)
+        for _ in range(200):
+            x.add_(1.0)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    work()
+    with profile(activities=acts):      # the process's first session
+        work()
+        torch.cuda.synchronize()
+    tmp = out_path + ".trace.json"
+    t_end, i = time.time() + seconds, 0
+    with open(out_path, "w") as out:
+        while time.time() < t_end:
+            margin = (0.0, trace.MARGIN_S)[i % 2]
+            t0 = time.time()
+            with profile(activities=acts) as prof:
+                time.sleep(margin)
+                work()
+                torch.cuda.synchronize()
+                time.sleep(margin)
+            prof.export_chrome_trace(tmp)
+            events = trace.load(tmp)
+            launch = {e["args"]["correlation"]: e["ts"] for e in events
+                      if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                      and "Launch" in e.get("name", "")}
+            kern = [e for e in events if e.get("cat") == "kernel"]
+            offs = [k["ts"] - launch[k["args"]["correlation"]] for k in kern
+                    if k.get("args", {}).get("correlation") in launch]
+            out.write(json.dumps({"t": t0, "margin": margin,
+                                  "launches": len(launch),
+                                  "kernels": len(kern),
+                                  "skew_us": min(offs) if offs else None})
+                      + "\n")
+            i += 1
+    os.remove(tmp)
+
+
+def profiler_skew(seconds):
+    """Two processes at once run ``skew_child`` for ``seconds``; per
+    process and margin: sessions, sessions that lost kernels, the lowest
+    skews; and the wall-clock seconds (since the first session) of the
+    sessions skewed by more than 1 ms, in both processes, side by side."""
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"p{i}.jsonl") for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--profiler-skew-child", str(seconds), out],
+            env={**os.environ, "PYTHONPATH": os.path.dirname(
+                os.path.abspath(__file__))}) for out in outs]
+        for p in procs:
+            if p.wait(timeout=seconds + 240) != 0:
+                fail(f"profiler_skew: a child exited {p.returncode}")
+        rows = [[json.loads(line) for line in open(out)] for out in outs]
+    t_first = min(r[0]["t"] for r in rows)
+    rec = {"phase": "profiler_skew", "seconds": seconds,
+           "nvidia_smi": nvidia_smi("name,power.limit")}
+    for i, rs in enumerate(rows):
+        for margin in sorted({r["margin"] for r in rs}):
+            mine = [r for r in rs if r["margin"] == margin]
+            skews = sorted(r["skew_us"] for r in mine
+                           if r["skew_us"] is not None)
+            rec[f"p{i}_margin_{margin}"] = {
+                "sessions": len(mine),
+                "lost_kernels": [[round(r["t"] - t_first, 2), r["kernels"],
+                                  r["launches"]] for r in mine
+                                 if r["kernels"] < r["launches"]],
+                "lowest_skew_us": skews[:5]}
+        rec[f"p{i}_skewed_over_1ms_at_s"] = [
+            round(r["t"] - t_first, 2) for r in rs
+            if r["skew_us"] is not None and r["skew_us"] < -1000]
+    emit(rec)
+
+
+def run_profile_dir(torch, label, chooser_name):
+    """``chooser_name`` with ``profile_dir`` on the harness's Branin data
+    (HARNESS: 450 completions of the 2000-point Sobol grid, pad 512, where
+    B1-B3 carry every factorization): one unprofiled ``next`` (the
+    burn-in), PROFILED_CALLS consecutive calls with ``profile_dir`` set,
+    then as many without it.  Gates on each profiled call: exactly one new
+    trace, which parses as JSON; in it the ranges under the B1, B2 and B3
+    wrapper names as many as the launches the wrappers counted in the call
+    (and more than 0), each holding a device event; n_ok > 0.  Records
+    each call's latency (the chooser's event), wall time and launches,
+    each trace's size, ranges and lead-in records lost, and the
+    profiler's added latency (median profiled less median plain)."""
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.harness import loop
+    from spearmint_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    calls = []
+    with tempfile.TemporaryDirectory() as expt:
+        config = braninpy_experiment(expt)
+        grid = loop.open_grid(expt, config, HARNESS["grid_size"],
+                              HARNESS["grid_seed"])
+        g, values, durs = grid.get_grid()
+        args = (g, values, durs, grid.get_candidates(), grid.get_pending(),
+                grid.get_complete())
+        prof_dir = os.path.join(expt, "traces")
+        ch = get_chooser(chooser_name, expt, HARNESS_ARGS)
+        ch.next(*args)
+        for mode in ["profiled"] * PROFILED_CALLS + ["plain"] * PROFILED_CALLS:
+            ch.profile_dir = prof_dir if mode == "profiled" else ""
+            before = (set(os.listdir(prof_dir)) if os.path.isdir(prof_dir)
+                      else set())
+            reset_launches()
+            t1 = time.perf_counter()
+            ch.next(*args)
+            wall = time.perf_counter() - t1
+            launched = launch_counts()
+            ev = [e for e in ch.events.read() if e["kind"] == "suggest"][-1]
+            rec = {"mode": mode, "latency_s": ev["latency_s"],
+                   "wall_s": wall, "n_ok": ev["n_ok"],
+                   "launches": {k: launched[k] for k in FLAGSHIP_PATH}}
+            calls.append(rec)
+            if ev["n_ok"] <= 0:
+                fail(f"{label}: n_ok {ev['n_ok']}: {rec}")
+            if mode == "plain":
+                continue
+            new = sorted(set(os.listdir(prof_dir)) - before)
+            if len(new) != 1:
+                fail(f"{label}: the call wrote {new}, not one trace")
+            path = os.path.join(prof_dir, new[0])
+            events = trace.load(path)
+            kr = trace.ranges(events, trace.KERNEL_RANGES)
+            lead = trace.ranges(events, (trace.LEAD_IN_RANGE,))
+            rec.update(trace=new[0], trace_bytes=os.path.getsize(path),
+                       trace_events=len(events),
+                       ranges={k: len(v) for k, v in kr.items()},
+                       min_device_events={k: min(v) for k, v in kr.items()},
+                       lead_in_lost=trace.LEAD_IN - lead[
+                           trace.LEAD_IN_RANGE][0],
+                       stages=sorted(trace.ranges(events,
+                                                  trace.STAGE_PREFIX)))
+            os.remove(path)
+            for k in FLAGSHIP_PATH:
+                if not (launched[k] > 0 and len(kr.get(k, ())) == launched[k]
+                        and min(kr[k]) >= 1):
+                    fail(f"{label}: {k} launched {launched[k]}, trace "
+                         f"ranges {kr.get(k)}: {rec}")
+
+    def med(mode, key):
+        return float(np.median([c[key] for c in calls if c["mode"] == mode]))
+
+    rec = dict(phase=label, chooser=chooser_name, pad=512,
+               sessions_before=PROFILER_SESSIONS[0], calls=calls,
+               latency_median_s={m: med(m, "latency_s")
+                                 for m in ("profiled", "plain")},
+               wall_median_s={m: med(m, "wall_s")
+                              for m in ("profiled", "plain")},
+               added_latency_s=med("profiled", "latency_s")
+               - med("plain", "latency_s"),
+               added_wall_s=med("profiled", "wall_s") - med("plain", "wall_s"),
+               nvidia_smi=nvidia_smi("name,power.limit"),
+               seconds=time.perf_counter() - t0)
+    PROFILER_SESSIONS[0] += PROFILED_CALLS
+    emit(rec)
+    return rec
+
+
+def run_slice_counts(torch):
+    """One carried flagship sweep (pad 5120, 10 chains) with the loop
+    counters, beside the same sweep without them.  Both moves get lp0
+    from the carry (``chains.sample_hypers_lp``), so no seed evaluation
+    runs, and from a finite start every move steps out: the identity is
+    B1 launches = Σ over moves of max over chains (lo + up + sh + 2)
+    (``slice.move_evals``).  Gates: that identity against the B1 launches
+    counted in the sweep, and the states and lp bit for bit those of the
+    sweep without counters.  Then the slice-count tool
+    (``tools/profile_slice_counts``) at the harness's n=450 Branin data
+    (10 sweeps) and at the flagship (5 sweeps, about 1.4 s each)."""
+    import contextlib
+    import io
+
+    from spearmint_tpu_torch.engine.suggest import init_chain_states
+    from spearmint_tpu_torch.mcmc.chains import (
+        MCMCConfig, sample_hypers_lp, seed_lp,
+    )
+    from spearmint_tpu_torch.mcmc.slice import move_evals
+    from spearmint_tpu_torch.tools import profile_slice_counts as tool
+
+    t0 = time.perf_counter()
+    xp, yp, mask = padded_problem(torch, FLAGSHIP["n"], FLAGSHIP["d"],
+                                  FLAGSHIP["cands"])[:3]
+    x, y, m = (torch.tensor(a, device="cuda") for a in (xp, yp, mask))
+    h0 = init_chain_states(y, m, FLAGSHIP["d"], FLAGSHIP["chains"])
+    cfg = MCMCConfig()
+    lp0 = seed_lp(x, y, m, h0, cfg)
+    g_on, g_off = (torch.Generator(device="cuda") for _ in range(2))
+    g_on.manual_seed(0)
+    g_off.manual_seed(0)
+    reset_launches()
+    h_on, lp_on, (c_joint, c_ls) = sample_hypers_lp(
+        g_on, h0, lp0, x, y, m, cfg, with_counts=True)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    h_off, lp_off = sample_hypers_lp(g_off, h0, lp0, x, y, m, cfg)
+    per_move = ([int(move_evals(c_joint, True).max())]
+                + move_evals(c_ls, True).max(0).values.tolist())
+    rec = dict(phase="slice_counts", pad=len(yp),
+               chains=FLAGSHIP["chains"], lp0_finite=bool(
+                   torch.isfinite(lp0).all()),
+               counts_joint=c_joint.tolist(), counts_ls=c_ls.tolist(),
+               lockstep_per_move=per_move, lockstep=sum(per_move),
+               b1_launches=launched["shifted_logdet_q"], launches=launched,
+               bitwise_equal=bool(
+                   all(torch.equal(a, b) for a, b in zip(h_on, h_off))
+                   and torch.equal(lp_on, lp_off)))
+    emit(rec)
+    if not rec["lp0_finite"] or rec["lockstep"] != rec["b1_launches"] \
+            or not rec["bitwise_equal"]:
+        fail(f"slice_counts: {rec}")
+    tools = {}
+    for label, argv in (("harness_branin_n450", ["10", "450", "--data",
+                                                 "branin"]),
+                        ("flagship_n5000", ["5", "5000"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            stats = tool.main(argv)
+        tools[label] = stats
+        emit({"phase": "slice_counts_tool", "label": label,
+              "printed": out.getvalue().splitlines()[:-1], **stats})
+    return dict(rec, tools=tools, seconds=time.perf_counter() - t0)
+
+
 def main(argv) -> int:
     import torch
 
@@ -3040,6 +3374,9 @@ def main(argv) -> int:
         opts = dict(zip(argv[0::2], argv[1::2]))
         return rank_main(torch, int(opts["--rank"]), int(opts["--world"]),
                          opts["--store"], opts["--out"])
+    if argv[:1] == ["--profiler-skew-child"]:
+        skew_child(torch, float(argv[1]), argv[2])
+        return 0
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -3063,6 +3400,9 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--small-pads"]:
         small_pad_times(torch)
+        return 0
+    if argv[:1] == ["--profiler-skew"]:
+        profiler_skew(float(argv[1]) if argv[1:] else 40.0)
         return 0
     if argv[:1] == ["--vs"]:
         seeds = ([int(s) for s in argv[3].split(",")]
@@ -3112,6 +3452,13 @@ def main(argv) -> int:
              "lite_branin": run_lite(torch)["launches"],
              **run_distributed(torch)}
     b1_split(torch, gk, records["B1"])
+    emit({"phase": "profiler_sessions_before_profile_dir",
+          "opened_by_earlier_phases": PROFILER_SESSIONS[0],
+          "warm_sessions_b1_events_and_lead_in_lost": warm_profiler_sessions(
+              torch)})
+    run_profile_dir(torch, "profile_dir_branin", "GPEIOptChooser")
+    run_profile_dir(torch, "profile_dir_per_sec", "GPEIperSecChooser")
+    run_slice_counts(torch)
 
     src = "spearmint_tpu_torch/ops/csrc/"
     pallas = "spearmint_tpu/ops/pallas_gp.py:"

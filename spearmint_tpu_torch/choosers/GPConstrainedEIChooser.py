@@ -6,9 +6,11 @@ latent probit GP classifies feasibility and weights EI
 (``engine.constrained.suggest_step_constrained``, on ``device``).  Host
 duties as in the flagship: padding, memory policy, burn-in of both chain
 families on first init, events, the degenerate-sample fallback and the
-tuple protocol.  One deliberate difference, as in the port's flagship:
-after a suggestion whose samples all failed (n_ok == 0) the value and
-constraint chain states are kept as they were; the key still advances.
+tuple protocol.  Two deliberate differences, as in the port's other
+choosers: after a suggestion whose samples all failed (n_ok == 0) the
+value and constraint chain states are kept as they were (the key still
+advances), and ``profile_dir`` traces each call as the flagship's does
+(the JAX chooser takes the option and ignores it).
 
 The state file and its npz keys are the JAX chooser's
 (``GPConstrainedEIChooser_state.npz``: the flagship's keys plus
@@ -18,8 +20,6 @@ vectors are re-padded keeping their aligned prefix.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -130,13 +130,9 @@ class GPConstrainedEIChooser(GPEIOptChooser):
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
         )
-        t0 = time.perf_counter()
-        res = suggest_step_constrained(
+        res, latency = self._timed_step(lambda: suggest_step_constrained(
             gen, self._hypers, self._constraint, xt, yt, vm, om, cand_p,
-            cand_mask, cfg, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        latency = time.perf_counter() - t0
+            cand_mask, cfg, device=dev))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # replaces neither chain family: a stuck state would carry over to

@@ -16,8 +16,13 @@ other.  The random streams differ (``torch.Generator`` seeded with
 
 Band mode (``band_joint_min`` > 0) routes as the JAX chooser does, with
 the card in place of the TPU (``band_gate``): on the CPU the chooser runs
-dense, as the JAX one does off the TPU.  Not ported yet, and refused with
-NotImplementedError: ``profile_dir`` (ROADMAP A6).
+dense, as the JAX one does off the TPU.
+
+``profile_dir``: each suggestion's step runs under ``torch.profiler`` and
+one Chrome trace per call is written there (``utils/trace``), as the JAX
+chooser writes one ``jax.profiler`` trace per call; a trace that lost the
+device events of the kernels the call launched raises.  Empty (the
+default), the step runs with no profiler and no extra synchronize.
 
 Several ranks (``engine/distributed``): every rank runs the same ``next``
 on the same inputs.  From pad ``obs_shard_min``, with no pending jobs and
@@ -26,10 +31,10 @@ over the ranks of the default group (``engine/obs_shard.use_obs_gate``;
 the event's ``mode`` is ``obs_shard``), else every rank runs the chains
 path alone (``mode`` ``chains``); the burn-in runs unsharded on every
 rank, as the JAX chooser's does.  The count is the group's ranks, not the
-GPUs a process sees.  Only the coordinator writes the state file and the
-events; the other ranks keep the state in memory, and every rank waits at
-a barrier after the write, so a chooser made anew on any rank reads the
-same state.
+GPUs a process sees.  Only the coordinator writes the state file, the
+events and the traces; the other ranks keep the state in memory, and every
+rank waits at a barrier after the write, so a chooser made anew on any
+rank reads the same state.
 """
 
 from __future__ import annotations
@@ -85,9 +90,6 @@ class GPEIOptChooser:
                                # band mode (ops/band, kernel B5); 0: off
         device="cuda",
     ):
-        if str(profile_dir):
-            raise NotImplementedError(
-                "profile_dir: profiling is not ported yet — ROADMAP A6")
         self.device = resolve_device(device)
         self.expt_dir = expt_dir
         self.covar = str(covar)
@@ -105,6 +107,7 @@ class GPEIOptChooser:
         self.band_joint_min = int(band_joint_min)
         self.seed = int(seed)
         self.optimize = True  # GPEIChooser flips this off
+        self.profile_dir = str(profile_dir)  # a trace per call when set
         self.state_file = os.path.join(
             expt_dir, f"{type(self).__name__}_state.npz")
         self.locker = Locker(self.state_file)
@@ -219,6 +222,62 @@ class GPEIOptChooser:
             return opt_value, x_opt
         return int(candidates[int(best_cand)])
 
+    def _timed_step(self, step):
+        """``step()`` and its seconds up to a device synchronize (the event
+        log's latency).  With ``profile_dir``, on the coordinator, under
+        ``torch.profiler``: one trace per call."""
+        if self.profile_dir and distributed.is_coordinator():
+            return self._profiled_step(step)
+        t0 = time.perf_counter()
+        res = step()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return res, time.perf_counter() - t0
+
+    def _profiled_step(self, step):
+        """``_timed_step`` under ``torch.profiler`` (the CPU, and the card
+        when the step runs there).  On the card the session idles
+        ``trace.MARGIN_S`` and launches ``trace.lead_in`` before the step,
+        and idles again after its synchronize, so that neither early
+        device timestamps nor the loss of a session's first records can
+        take the step's own (``utils/trace``).  Writes
+        ``<chooser>.<key_state>.<pid>.pt.trace.json`` into ``profile_dir``
+        and raises if the trace lost the device events of the kernels the
+        step launched (the trace is then renamed ``*.incomplete``)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from spearmint_tpu_torch.utils import trace
+
+        dev = self.device
+        on_card = dev.type == "cuda"
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        before = trace.kernel_launches()
+        with profile(activities=acts) as prof:
+            if on_card:
+                time.sleep(trace.MARGIN_S)
+                trace.lead_in(dev)
+            t0 = time.perf_counter()
+            res = step()
+            if on_card:
+                torch.cuda.synchronize(dev)
+            latency = time.perf_counter() - t0
+            if on_card:
+                time.sleep(trace.MARGIN_S)
+        launched = {k: n - before[k]
+                    for k, n in trace.kernel_launches().items()}
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.profile_dir, f"{type(self).__name__}.{self._key_state}."
+                              f"{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        try:
+            trace.check(path, launched, with_lead_in=on_card)
+        except RuntimeError:
+            os.replace(path, path + ".incomplete")
+            raise
+        return res, latency
+
     def _emit(self, kind, **fields):
         """An event of the coordinator: one line a suggestion, however
         many ranks run it."""
@@ -298,16 +357,13 @@ class GPEIOptChooser:
             explicit_inverse=explicit_inv,
             band_joint=band_gate(self.band_joint_min, pad, use_obs, dev),
         )
-        t0 = time.perf_counter()
         if use_obs:
-            res = self._obs_step(cfg)(gen, self._hypers, xt, yt, mt, cand_p,
-                                      cand_mask)
+            res, latency = self._timed_step(lambda: self._obs_step(cfg)(
+                gen, self._hypers, xt, yt, mt, cand_p, cand_mask))
         else:
-            res = suggest_step(gen, self._hypers, xt, yt, mt, pend_p,
-                               pend_mask, cand_p, cand_mask, cfg, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        latency = time.perf_counter() - t0
+            res, latency = self._timed_step(lambda: suggest_step(
+                gen, self._hypers, xt, yt, mt, pend_p, pend_mask, cand_p,
+                cand_mask, cfg, device=dev))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # does not replace the chain states: a stuck state would carry

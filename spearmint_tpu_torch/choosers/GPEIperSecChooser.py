@@ -8,13 +8,16 @@ log job durations; the numerics run in
 clamped as the JAX chooser clamps them: a missing one counts as 1 s, and
 none below 1 ms.
 
-Two deliberate differences from the JAX chooser, both reference defects:
+Three deliberate differences from the JAX chooser, all reference defects:
   * non-finite objective values are dropped with their durations and
     inputs, as the flagship drops them (the JAX chooser keeps them, and
     one NaN completion makes every later suggestion degenerate);
   * after a suggestion whose samples all failed (n_ok == 0) the chain
     states of both families are kept as they were; the key still
-    advances.
+    advances;
+  * ``profile_dir`` traces each call as the flagship's does (the JAX
+    chooser takes the option and ignores it: its ``next`` never enters a
+    trace).
 
 The state file and its npz keys are the JAX chooser's
 (``GPEIperSecChooser_state.npz``: the flagship's keys plus ``time_mean,
@@ -26,8 +29,6 @@ writes the state and the events.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -137,18 +138,15 @@ class GPEIperSecChooser(GPEIOptChooser):
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
         )
-        t0 = time.perf_counter()
         if use_obs:
-            res = self._obs_step(cfg, "sharded_suggest_per_sec")(
+            res, latency = self._timed_step(lambda: self._obs_step(
+                cfg, "sharded_suggest_per_sec")(
                 gen, self._hypers, self._time_hypers, xt, yt, tt, mt, cand_p,
-                cand_mask)
+                cand_mask))
         else:
-            res = suggest_step_per_sec(
+            res, latency = self._timed_step(lambda: suggest_step_per_sec(
                 gen, self._hypers, self._time_hypers, xt, yt, tt, mt, pend_p,
-                pend_mask, cand_p, cand_mask, cfg, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        latency = time.perf_counter() - t0
+                pend_mask, cand_p, cand_mask, cfg, device=dev))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # replaces neither chain family; the key still advances.

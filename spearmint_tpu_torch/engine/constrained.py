@@ -24,7 +24,6 @@ chains and samples in groups (``engine.suggest._groups``).
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -36,7 +35,7 @@ from spearmint_tpu_torch.core.likelihood import (
     GPHypers, _effective_jitter, unit_cov_matrix,
 )
 from spearmint_tpu_torch.engine.suggest import (
-    SuggestConfig, _cat, _groups, _mark, _refine,
+    SuggestConfig, _cat, _groups, _refine, _stage,
     _sample_chains, _stack_iters, _take, _value_caches, nan_robust_mean,
 )
 from spearmint_tpu_torch.mcmc.ess import elliptical_slice
@@ -254,61 +253,61 @@ def suggest_step_constrained(
     chains = hypers.mean.shape[0]
     kernel = config.kernel
     z = torch.where(valid_mask, 1.0, -1.0).to(x.dtype)
-    t0 = time.perf_counter()
 
     # ---- value GP over the valid observations --------------------------
-    h_last, flat = _sample_chains(gen, hypers, x, y, valid_mask, config)
-    t0 = _mark(stage_times, "mcmc", t0, dev)
+    with _stage(stage_times, "mcmc", dev):
+        h_last, flat = _sample_chains(gen, hypers, x, y, valid_mask, config)
 
     # ---- constraint model over all observations ------------------------
-    c_parts, cs_parts = [], []
-    for sl in _groups(chains, config.chain_chunk):
-        c = _take(constraint, sl)
-        its = []
-        for _ in range(config.mcmc_iters):
-            c = _sample_constraint(gen, c, x, z, obs_mask, kernel,
-                                   config.max_ls)
-            its.append(c)
-        c_parts.append(c)
-        cs_parts.append(_stack_iters(its))
-    c_last, c_flat = _cat(c_parts), _cat(cs_parts)
-    t0 = _mark(stage_times, "constraint", t0, dev)
+    with _stage(stage_times, "constraint", dev):
+        c_parts, cs_parts = [], []
+        for sl in _groups(chains, config.chain_chunk):
+            c = _take(constraint, sl)
+            its = []
+            for _ in range(config.mcmc_iters):
+                c = _sample_constraint(gen, c, x, z, obs_mask, kernel,
+                                       config.max_ls)
+                its.append(c)
+            c_parts.append(c)
+            cs_parts.append(_stack_iters(its))
+        c_last, c_flat = _cat(c_parts), _cat(cs_parts)
 
     # ---- one factorization per sample and model ------------------------
-    caches = _value_caches(x, y, valid_mask, flat, config)
-    c_caches = _constraint_caches(c_flat, x, obs_mask, kernel,
-                                  config.chain_chunk)
-    # NaN-robust average: a sample whose value or constraint cache failed
-    # at the f32 conditioning edge drops out
-    ok = (torch.isfinite(caches.alpha).all(1)
-          & torch.isfinite(c_caches.alpha).all(1))
-    t0 = _mark(stage_times, "caches", t0, dev)
+    with _stage(stage_times, "caches", dev):
+        caches = _value_caches(x, y, valid_mask, flat, config)
+        c_caches = _constraint_caches(c_flat, x, obs_mask, kernel,
+                                      config.chain_chunk)
+        # NaN-robust average: a sample whose value or constraint cache
+        # failed at the f32 conditioning edge drops out
+        ok = (torch.isfinite(caches.alpha).all(1)
+              & torch.isfinite(c_caches.alpha).all(1))
 
     def acq_at(pts):
         pv = _p_valid_from_cache(c_caches, x, obs_mask, pts, kernel)
         return ei_mod.ei_from_cache(caches, x, valid_mask, pts, kernel) * pv, pv
 
-    parts = [acq_at(cand[i:i + ACQ_CHUNK])
-             for i in range(0, cand.shape[0], ACQ_CHUNK)]
-    acq_mean, n_ok_true = nan_robust_mean(torch.cat([a for a, _ in parts], -1),
-                                          ok)
-    pv_mean, _ = nan_robust_mean(torch.cat([p for _, p in parts], -1), ok)
-    n_ok = torch.clamp_min(n_ok_true.to(x.dtype), 1.0)
-    acq_masked = torch.where(cand_mask, acq_mean, float("-inf"))
-    best_cand = torch.argmax(acq_masked)
-    best_cand_acq = acq_masked[best_cand]
-    t0 = _mark(stage_times, "acq", t0, dev)
+    with _stage(stage_times, "acq", dev):
+        parts = [acq_at(cand[i:i + ACQ_CHUNK])
+                 for i in range(0, cand.shape[0], ACQ_CHUNK)]
+        acq_mean, n_ok_true = nan_robust_mean(
+            torch.cat([a for a, _ in parts], -1), ok)
+        pv_mean, _ = nan_robust_mean(torch.cat([p for _, p in parts], -1),
+                                     ok)
+        n_ok = torch.clamp_min(n_ok_true.to(x.dtype), 1.0)
+        acq_masked = torch.where(cand_mask, acq_mean, float("-inf"))
+        best_cand = torch.argmax(acq_masked)
+        best_cand_acq = acq_masked[best_cand]
 
-    if config.optimize:
-        def neg_acq(pts):
-            a, _ = acq_at(pts)
-            a = torch.where(ok[:, None] & torch.isfinite(a), a, 0.0)
-            return -a.sum(0) / n_ok
+    with _stage(stage_times, "lbfgs", dev):
+        if config.optimize:
+            def neg_acq(pts):
+                a, _ = acq_at(pts)
+                a = torch.where(ok[:, None] & torch.isfinite(a), a, 0.0)
+                return -a.sum(0) / n_ok
 
-        x_opt, acq_opt = _refine(neg_acq, cand, acq_masked, config)
-    else:
-        x_opt, acq_opt = cand[best_cand], best_cand_acq
-    _mark(stage_times, "lbfgs", t0, dev)
+            x_opt, acq_opt = _refine(neg_acq, cand, acq_masked, config)
+        else:
+            x_opt, acq_opt = cand[best_cand], best_cand_acq
 
     return ConstrainedResult(
         hypers=h_last, constraint=c_last, acq=acq_mean, p_valid=pv_mean,

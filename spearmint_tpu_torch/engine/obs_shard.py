@@ -58,7 +58,7 @@ from spearmint_tpu_torch.engine.per_sec import (
     MIN_SECONDS, PerSecResult, split_generator,
 )
 from spearmint_tpu_torch.engine.suggest import (
-    SuggestResult, _groups, _mark, _sample_chains, _take, nan_robust_mean,
+    SuggestResult, _groups, _sample_chains, _stage, _take, nan_robust_mean,
 )
 from spearmint_tpu_torch.mcmc.chains import MCMCConfig, sample_hypers
 from spearmint_tpu_torch.utils.platform import resolve_device
@@ -430,22 +430,24 @@ def sharded_suggest_obs(mesh: ObsMesh, config, stage_times: dict | None
         dev = mesh.device
         (hypers,), (x, y, cand), (mask, cand_mask) = _put_all(
             dev, [hypers], [x, y, cand], [mask, cand_mask])
-        t0 = time.perf_counter()
-        h_last, flat = _sample_chains(gen, hypers, x, y, mask, config, mcfg)
-        t0 = _mark(stage_times, "mcmc", t0, dev)
-        best = torch.where(mask, y, float("inf")).min()
-        parts, oks = [], []
-        for sl in _groups(flat.mean.shape[0], config.chain_chunk):
-            h = _take(flat, sl)
-            l_col, alpha, ok = _value_pieces(mesh, x, y, mask, h, kernel)
-            parts.append(torch.cat([
-                _ei_chunk(mesh, x, mask, h, l_col, alpha, best, cc, kernel)
-                for cc in _chunk_candidates(cand)], -1))
-            oks.append(ok)
-            del l_col
-        ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
-        best_cand, best_ei, x_best = _argmax_result(ei_mean, cand, cand_mask)
-        _mark(stage_times, "ei", t0, dev)
+        with _stage(stage_times, "mcmc", dev):
+            h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
+                                          mcfg)
+        with _stage(stage_times, "ei", dev):
+            best = torch.where(mask, y, float("inf")).min()
+            parts, oks = [], []
+            for sl in _groups(flat.mean.shape[0], config.chain_chunk):
+                h = _take(flat, sl)
+                l_col, alpha, ok = _value_pieces(mesh, x, y, mask, h, kernel)
+                parts.append(torch.cat([
+                    _ei_chunk(mesh, x, mask, h, l_col, alpha, best, cc,
+                              kernel)
+                    for cc in _chunk_candidates(cand)], -1))
+                oks.append(ok)
+                del l_col
+            ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
+            best_cand, best_ei, x_best = _argmax_result(ei_mean, cand,
+                                                        cand_mask)
         return SuggestResult(
             hypers=h_last, samples=flat, ei=ei_mean, best_cand=best_cand,
             best_cand_ei=best_ei, x_opt=x_best, ei_opt=best_ei, n_ok=n_ok)
@@ -475,35 +477,36 @@ def sharded_suggest_per_sec(mesh: ObsMesh, config,
             _put_all(dev, [hypers, time_hypers], [x, y, log_durs, cand],
                      [mask, cand_mask]))
         g_val, g_time, _ = split_generator(gen, 3)
-        t0 = time.perf_counter()
-        h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config,
-                                      mcfg)
-        t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs,
-                                        mask, config, mcfg)
-        t0 = _mark(stage_times, "mcmc", t0, dev)
-        best = torch.where(mask, y, float("inf")).min()
-        parts, oks = [], []
-        for sl in _groups(flat.mean.shape[0], config.chain_chunk):
-            h, th = _take(flat, sl), _take(t_flat, sl)
-            l_col, alpha, ok_v = _value_pieces(mesh, x, y, mask, h, kernel)
-            # only the duration posterior's MEAN is needed: its slab goes
-            _, t_alpha, ok_t = _value_pieces(mesh, x, log_durs, mask, th,
-                                             kernel)
-            chunks = []
-            for cc in _chunk_candidates(cand):
-                ei = _ei_chunk(mesh, x, mask, h, l_col, alpha, best, cc,
-                               kernel)
-                t_mu = th.mean[:, None] + (
-                    t_alpha[:, None, :] @ _cross(x, mask, th, cc, kernel)
-                )[:, 0]
-                chunks.append(ei / torch.clamp_min(torch.exp(t_mu),
-                                                   MIN_SECONDS))
-            parts.append(torch.cat(chunks, -1))
-            oks.append(ok_v & ok_t)
-            del l_col
-        ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
-        best_cand, best_ei, x_best = _argmax_result(ei_mean, cand, cand_mask)
-        _mark(stage_times, "ei", t0, dev)
+        with _stage(stage_times, "mcmc", dev):
+            h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config,
+                                          mcfg)
+            t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs,
+                                            mask, config, mcfg)
+        with _stage(stage_times, "ei", dev):
+            best = torch.where(mask, y, float("inf")).min()
+            parts, oks = [], []
+            for sl in _groups(flat.mean.shape[0], config.chain_chunk):
+                h, th = _take(flat, sl), _take(t_flat, sl)
+                l_col, alpha, ok_v = _value_pieces(mesh, x, y, mask, h,
+                                                   kernel)
+                # only the duration posterior's MEAN is needed: its slab goes
+                _, t_alpha, ok_t = _value_pieces(mesh, x, log_durs, mask,
+                                                 th, kernel)
+                chunks = []
+                for cc in _chunk_candidates(cand):
+                    ei = _ei_chunk(mesh, x, mask, h, l_col, alpha, best, cc,
+                                   kernel)
+                    t_mu = th.mean[:, None] + (
+                        t_alpha[:, None, :] @ _cross(x, mask, th, cc, kernel)
+                    )[:, 0]
+                    chunks.append(ei / torch.clamp_min(torch.exp(t_mu),
+                                                       MIN_SECONDS))
+                parts.append(torch.cat(chunks, -1))
+                oks.append(ok_v & ok_t)
+                del l_col
+            ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
+            best_cand, best_ei, x_best = _argmax_result(ei_mean, cand,
+                                                        cand_mask)
         return PerSecResult(
             hypers=h_last, time_hypers=t_last, ei_per_s=ei_mean,
             best_cand=best_cand, best_cand_ei=best_ei, x_opt=x_best,

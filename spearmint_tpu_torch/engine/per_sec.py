@@ -21,7 +21,6 @@ duration chains, fantasies) as the JAX code splits its key into
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -29,7 +28,7 @@ import torch
 from spearmint_tpu_torch.acquire import ei as ei_mod
 from spearmint_tpu_torch.core.likelihood import GPHypers
 from spearmint_tpu_torch.engine.suggest import (
-    SuggestConfig, _mark, _pending_caches, _refine, _sample_chains,
+    SuggestConfig, _pending_caches, _refine, _sample_chains, _stage,
     _value_caches, nan_robust_mean,
 )
 from spearmint_tpu_torch.utils.platform import resolve_device
@@ -92,23 +91,22 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
     time_hypers = GPHypers(*(put(a) for a in time_hypers))
     kernel = config.kernel
     g_val, g_time, g_fant = split_generator(gen, 3)
-    t0 = time.perf_counter()
 
     # ---- MCMC: the two chain families, one [chains] batch each ---------
-    h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config)
-    t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs, mask,
-                                    config)
+    with _stage(stage_times, "mcmc", dev):
+        h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config)
+        t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs,
+                                        mask, config)
     s = flat.mean.shape[0]
-    t0 = _mark(stage_times, "mcmc", t0, dev)
 
     # ---- caches: value GP (fantasies when pending), duration GP --------
-    cache, x_all, mask_all = _pending_caches(g_fant, x, y, mask, pend,
-                                             pend_mask, flat, config)
-    t_cache = _value_caches(x, log_durs, mask, t_flat, config)
-    # a sample counts only if both families' factorizations are finite
-    ok = (torch.isfinite(cache.alpha.reshape(s, -1)).all(1)
-          & torch.isfinite(t_cache.alpha.reshape(s, -1)).all(1))
-    t0 = _mark(stage_times, "caches", t0, dev)
+    with _stage(stage_times, "caches", dev):
+        cache, x_all, mask_all = _pending_caches(g_fant, x, y, mask, pend,
+                                                 pend_mask, flat, config)
+        t_cache = _value_caches(x, log_durs, mask, t_flat, config)
+        # a sample counts only if both families' factorizations are finite
+        ok = (torch.isfinite(cache.alpha.reshape(s, -1)).all(1)
+              & torch.isfinite(t_cache.alpha.reshape(s, -1)).all(1))
 
     def ei_per_s_at(pts):
         """[S] sample-paired EI/sec at pts [C', D] → [S, C']."""
@@ -121,26 +119,26 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
         return eis / torch.clamp_min(torch.exp(mus), MIN_SECONDS)
 
     # ---- EI/sec over the candidates, NaN-robust average over samples ---
-    per_s = torch.cat([ei_per_s_at(cand[i:i + ACQ_CHUNK])
-                       for i in range(0, cand.shape[0], ACQ_CHUNK)], -1)
-    ei_mean, n_ok_true = nan_robust_mean(per_s, ok)
-    n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
-    ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
-    best_cand = torch.argmax(ei_masked)
-    best_cand_ei = ei_masked[best_cand]
-    t0 = _mark(stage_times, "ei", t0, dev)
+    with _stage(stage_times, "ei", dev):
+        per_s = torch.cat([ei_per_s_at(cand[i:i + ACQ_CHUNK])
+                           for i in range(0, cand.shape[0], ACQ_CHUNK)], -1)
+        ei_mean, n_ok_true = nan_robust_mean(per_s, ok)
+        n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
+        ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
+        best_cand = torch.argmax(ei_masked)
+        best_cand_ei = ei_masked[best_cand]
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI/sec ----
-    if config.optimize:
-        def neg_avg(pts):
-            eis = ei_per_s_at(pts)
-            eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
-            return -eis.sum(0) / n_ok
+    with _stage(stage_times, "lbfgs", dev):
+        if config.optimize:
+            def neg_avg(pts):
+                eis = ei_per_s_at(pts)
+                eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
+                return -eis.sum(0) / n_ok
 
-        x_opt, ei_opt = _refine(neg_avg, cand, ei_masked, config)
-    else:
-        x_opt, ei_opt = cand[best_cand], best_cand_ei
-    _mark(stage_times, "lbfgs", t0, dev)
+            x_opt, ei_opt = _refine(neg_avg, cand, ei_masked, config)
+        else:
+            x_opt, ei_opt = cand[best_cand], best_cand_ei
 
     return PerSecResult(
         hypers=h_last, time_hypers=t_last, ei_per_s=ei_mean,

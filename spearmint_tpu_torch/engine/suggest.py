@@ -16,6 +16,7 @@ with masks exactly as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -126,14 +127,20 @@ def _cat_caches(parts):
     return ei_mod.PosteriorCache(**fields)
 
 
-def _mark(stage_times, name, t0, dev):
-    if stage_times is None:
-        return t0
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    now = time.perf_counter()
-    stage_times[name] = stage_times.get(name, 0.0) + now - t0
-    return now
+@contextlib.contextmanager
+def _stage(stage_times, name, dev):
+    """One stage of a step: a profiler range ``stage:<name>`` (what a trace
+    shows of the stage, as the JAX package's name stack does) and, with
+    ``stage_times`` (a dict), its seconds up to a device synchronize added
+    under ``name``."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(f"stage:{name}"):
+        yield
+        if stage_times is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            stage_times[name] = (stage_times.get(name, 0.0)
+                                 + time.perf_counter() - t0)
 
 
 def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig,
@@ -244,56 +251,57 @@ def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
         lo, hi = mesh.rows("cand", c_all)
         my_cand = cand[lo:hi]
         reduce = mesh.sum_chains
-    t0 = time.perf_counter()
 
     # ---- MCMC: chains batched, mcmc_iters carried sweeps ---------------
-    h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
-                                  config.mcmc._replace(chain_shard=shard))
+    with _stage(stage_times, "mcmc", dev):
+        h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
+                                      config.mcmc._replace(chain_shard=shard))
     s = flat.mean.shape[0]
-    t0 = _mark(stage_times, "mcmc", t0, dev)
 
     # ---- posterior caches (one factorization per sample) ---------------
-    cache, x_all, mask_all = _pending_caches(gen, x, y, mask, pend,
-                                             pend_mask, flat, config, shard)
-    t0 = _mark(stage_times, "caches", t0, dev)
+    with _stage(stage_times, "caches", dev):
+        cache, x_all, mask_all = _pending_caches(
+            gen, x, y, mask, pend, pend_mask, flat, config, shard)
 
     # ---- EI over the candidates, NaN-robust average over samples -------
-    ei_samples = ei_mod.ei_from_cache_chunked(cache, x_all, mask_all,
-                                              my_cand, kernel)
-    if ei_samples.ndim == 3:                    # [S, C] | [S, F, C]
-        ei_samples = ei_samples.mean(1)
-    ok = torch.isfinite(cache.alpha.reshape(s, -1)).all(1)
-    ei_mean, n_ok_true = nan_robust_mean(ei_samples, ok, reduce)
-    if mesh is not None:
-        ei_mean = mesh.gather("cand", ei_mean, c_all)
-        h_last = GPHypers(*(mesh.gather("chains", a, chains)
-                            for a in h_last))
-        flat = GPHypers(*(mesh.gather("chains", a,
-                                      chains * config.mcmc_iters)
-                          for a in flat))
-    n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
-    ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
-    best_cand = torch.argmax(ei_masked)
-    best_cand_ei = ei_masked[best_cand]
-    t0 = _mark(stage_times, "ei", t0, dev)
+    with _stage(stage_times, "ei", dev):
+        ei_samples = ei_mod.ei_from_cache_chunked(cache, x_all, mask_all,
+                                                  my_cand, kernel)
+        if ei_samples.ndim == 3:                    # [S, C] | [S, F, C]
+            ei_samples = ei_samples.mean(1)
+        ok = torch.isfinite(cache.alpha.reshape(s, -1)).all(1)
+        ei_mean, n_ok_true = nan_robust_mean(ei_samples, ok, reduce)
+        if mesh is not None:
+            ei_mean = mesh.gather("cand", ei_mean, c_all)
+            h_last = GPHypers(*(mesh.gather("chains", a, chains)
+                                for a in h_last))
+            flat = GPHypers(*(mesh.gather("chains", a,
+                                          chains * config.mcmc_iters)
+                              for a in flat))
+        n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
+        ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
+        best_cand = torch.argmax(ei_masked)
+        best_cand_ei = ei_masked[best_cand]
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI --------
-    if config.optimize:
-        def ei_sum(pts):
-            eis = ei_mod.ei_from_cache(cache, x_all, mask_all, pts, kernel)
-            if eis.ndim == 3:
-                eis = eis.mean(1)
-            eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
-            return eis.sum(0)
+    with _stage(stage_times, "lbfgs", dev):
+        if config.optimize:
+            def ei_sum(pts):
+                eis = ei_mod.ei_from_cache(cache, x_all, mask_all, pts,
+                                           kernel)
+                if eis.ndim == 3:
+                    eis = eis.mean(1)
+                eis = torch.where(ok[:, None] & torch.isfinite(eis), eis,
+                                  0.0)
+                return eis.sum(0)
 
-        if mesh is not None:
-            ei_sum = mesh.sum_chains_grad(ei_sum)
-        x_opt, ei_opt = _refine(lambda pts: -ei_sum(pts) / n_ok, cand,
-                                ei_masked, config)
-    else:
-        x_opt = cand[best_cand]
-        ei_opt = best_cand_ei
-    _mark(stage_times, "lbfgs", t0, dev)
+            if mesh is not None:
+                ei_sum = mesh.sum_chains_grad(ei_sum)
+            x_opt, ei_opt = _refine(lambda pts: -ei_sum(pts) / n_ok, cand,
+                                    ei_masked, config)
+        else:
+            x_opt = cand[best_cand]
+            ei_opt = best_cand_ei
 
     return SuggestResult(
         hypers=h_last, samples=flat, ei=ei_mean, best_cand=best_cand,

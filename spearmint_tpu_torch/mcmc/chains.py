@@ -103,7 +103,8 @@ def _joint_prior_terms(amp2, noise, config: MCMCConfig):
 
 def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
                      lp_mar: torch.Tensor, x, y, mask,
-                     config: MCMCConfig = MCMCConfig()):
+                     config: MCMCConfig = MCMCConfig(),
+                     with_counts: bool = False):
     """One full sweep of every chain, carrying the GP log-marginal.
 
     ``lp_mar`` [K] is ``config.marginal`` at ``hypers``.  The joint move's
@@ -112,7 +113,8 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
     the same terms.  In band mode ``lp_mar`` is unused (None will do): the
     joint move seeds with one banded evaluation and the ls move with one
     dense one, so each compares lp values of its own path.  Returns
-    (hypers', lp_mar')."""
+    (hypers', lp_mar'), and with ``with_counts`` also the moves' loop
+    counters (``slice_sample``'s): (joint [K, 3], ls [K, D, 3])."""
     if config.noiseless:
         vec0 = torch.stack([hypers.mean, hypers.amp2], dim=1)
     else:
@@ -130,8 +132,9 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
     def joint_lp(vec):
         return _joint_logprob(vec, x, y, mask, hypers.ls, config, marginal3)
 
-    vec, lp_joint = slice_sample(gen, vec0, joint_lp, compwise=False,
-                                 lp0=lp0_joint, shard=config.chain_shard)
+    vec, lp_joint, *c_joint = slice_sample(
+        gen, vec0, joint_lp, compwise=False, lp0=lp0_joint,
+        shard=config.chain_shard, with_counts=with_counts)
     mean, amp2 = vec[:, 0], vec[:, 1]
     noise = (torch.full_like(mean, priors.DEFAULT_NOISE) if config.noiseless
              else vec[:, 2])
@@ -142,9 +145,11 @@ def sample_hypers_lp(gen: torch.Generator, hypers: GPHypers,
 
     lp0_ls = (None if config.band_joint
               else lp_joint - _joint_prior_terms(amp2, noise, config))
-    ls, lp_ls = slice_sample(gen, hypers.ls, ls_lp, compwise=True,
-                             lp0=lp0_ls, shard=config.chain_shard)
-    return GPHypers(mean, amp2, noise, ls), lp_ls
+    ls, lp_ls, *c_ls = slice_sample(gen, hypers.ls, ls_lp, compwise=True,
+                                    lp0=lp0_ls, shard=config.chain_shard,
+                                    with_counts=with_counts)
+    out = GPHypers(mean, amp2, noise, ls), lp_ls
+    return out + ((*c_joint, *c_ls),) if with_counts else out
 
 
 def marginal_at(x, y, mask, hypers: GPHypers, config: MCMCConfig):

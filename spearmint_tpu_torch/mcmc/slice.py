@@ -21,6 +21,11 @@ shape and the rank keeps its rows, and the loop ends when the chains of
 every rank are DONE (one all-reduce per step), so each rank's chains take
 exactly the steps and draws they take unsharded, and the ranks make the
 same collective calls.  Without one, nothing changes.
+
+``with_counts`` returns each move's loop counters as the JAX sampler's
+does: int32 (lower step-outs, upper step-outs, shrink evaluations) per
+chain, left on the device.  ``move_evals`` turns them into the move's
+``logprob`` evaluations.
 """
 
 from __future__ import annotations
@@ -76,7 +81,8 @@ def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
                      max_steps_out, max_shrink, lp0=None, shard=None):
     """One slice move of every chain of x0 [K, dim] along direction [K, dim].
 
-    Returns (x_new [K, dim], logprob(x_new) [K]).  ``lp0`` ([K], the
+    Returns (x_new [K, dim], logprob(x_new) [K], counts [K, 3]): counts
+    are the loop counters i_lo, i_up and i_sh at exit.  ``lp0`` ([K], the
     density at x0) skips the initial evaluation when the caller knows it.
     """
 
@@ -137,7 +143,21 @@ def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
 
     # shrink budget exhausted: z stays 0, i.e. the chain stays at x0 with
     # density lp0 (the reference raises instead)
-    return x0 + z[:, None] * direction, llh
+    return (x0 + z[:, None] * direction, llh,
+            torch.stack((i_lo, i_up, i_sh), dim=-1))
+
+
+def move_evals(counts: torch.Tensor, stepped_out) -> torch.Tensor:
+    """The ``logprob`` evaluations of each move, from its counters
+    ([..., 3]): lo + up + sh + 2 for a chain that stepped out (the two
+    evaluations that left the bracket), sh for one that did not.  A chain
+    steps out when ``step_out`` is on and its slice is finite, i.e. its
+    density at the start of the move is finite.  The batched loop makes
+    max over chains of these calls per move; the seed evaluation of a
+    sweep called without ``lp0`` is one more."""
+    evals = counts.sum(-1)
+    return torch.where(torch.as_tensor(stepped_out, device=counts.device),
+                       evals + 2, evals)
 
 
 def slice_sample(gen: torch.Generator, x0: torch.Tensor,
@@ -146,14 +166,21 @@ def slice_sample(gen: torch.Generator, x0: torch.Tensor,
                  max_steps_out: int = MAX_STEPS_OUT,
                  max_shrink: int = MAX_SHRINK, compwise: bool = False,
                  lp0: torch.Tensor | None = None,
-                 shard: ChainShard | None = None):
+                 shard: ChainShard | None = None,
+                 with_counts: bool = False):
     """One slice-sampling sweep of every chain of x0 [K, dim].
 
     ``logprob`` maps [K, dim] → [K].  compwise=True: one move per
     coordinate in a per-chain random order; compwise=False: one move along
     a per-chain random unit direction.  ``lp0`` ([K]) is the caller's known
     ``logprob(x0)``.  ``shard``: x0 is this rank's rows of a split batch.
-    Returns (x [K, dim], logprob(x) [K]).
+    Returns (x [K, dim], logprob(x) [K]), and with ``with_counts`` also the
+    moves' int32 loop counters (lower step-outs, upper step-outs, shrink
+    evaluations): [K, 3] for the joint move, [K, dim, 3] compwise, in the
+    JAX sampler's layout, where row t is the t-th move made, i.e. the move
+    of coordinate order[t] of that chain, not of coordinate t.  The
+    counters stay on the device and change neither the draws nor the
+    result.
     """
     k_chains, dim = x0.shape
     kw = dict(sigma=sigma, step_out=step_out, max_steps_out=max_steps_out,
@@ -163,15 +190,18 @@ def slice_sample(gen: torch.Generator, x0: torch.Tensor,
             draw_rows(torch.rand, gen, (k_chains, dim),
                   torch.empty((), device=x0.device), shard), dim=1)
         lp = _nan_to_ninf(logprob(x0) if lp0 is None else lp0)
-        x = x0
+        x, counts = x0, []
         for t in range(dim):
             direction = torch.nn.functional.one_hot(
                 order[:, t], dim).to(x0.dtype)
-            x, lp = _direction_slice(gen, x, direction, logprob, lp0=lp,
-                                     **kw)
-        return x, lp
+            x, lp, c = _direction_slice(gen, x, direction, logprob, lp0=lp,
+                                        **kw)
+            counts.append(c)
+        return (x, lp, torch.stack(counts, dim=1)) if with_counts else (x, lp)
     direction = draw_rows(torch.randn, gen, (k_chains, dim), x0, shard)
     direction = direction / torch.sqrt((direction ** 2).sum(-1, keepdim=True))
     if lp0 is not None:
         lp0 = _nan_to_ninf(lp0)
-    return _direction_slice(gen, x0, direction, logprob, lp0=lp0, **kw)
+    x, lp, counts = _direction_slice(gen, x0, direction, logprob, lp0=lp0,
+                                     **kw)
+    return (x, lp, counts) if with_counts else (x, lp)

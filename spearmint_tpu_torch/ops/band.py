@@ -48,7 +48,8 @@ padded to a 128-wide tile, factored with the pivot d2·rsqrt(d2) and
 inverted as B1's diagonal tile is, G = L⁻¹[B_left | B_rightᵀ] and
 g = L⁻¹r_odd by products with that inverse, the even-row updates; the
 inert padding blocks past ``n_real`` skipped), serves CPU tensors.
-``launches`` counts kernel launches (CUDA only).
+``launches`` counts kernel launches (CUDA only); each call is a profiler
+range named ``cr_logdet_q``.
 """
 
 from __future__ import annotations
@@ -306,6 +307,7 @@ def _check_cr_args(a, bb, r):
         raise ValueError(f"r: want {(k_batch, m * b)}, got {tuple(r.shape)}")
 
 
+@gp_kernels.ranged
 def cr_logdet_q(a, bb, r, n_real=None):
     """B5: (ld [K], q [K]) of block-tridiagonal K (see ``cr_logdet_q_ref``);
     blocks from ``n_real`` on (default m) are inert padding and are not

@@ -32,12 +32,14 @@ dshift [K, N], r [K, N] and factor M + diag(dshift); B4a/B4b take an
 assembled K [K, N, N] and r [K, N].  A non-PSD lane gives NaN in that lane
 only; padded rows (M = 0 with shift 1, or identity rows of K, with r = 0)
 add exactly 0.  ``launches`` counts kernel launches per wrapper (CUDA
-only).
+only).  Each wrapper call is a ``torch.profiler`` range under the
+wrapper's name (``ranged``), so a trace tells B1's kernels from B3's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,6 +58,19 @@ launches = {"shifted_logdet_q": 0, "shifted_factor_logdet_q": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def ranged(fn):
+    """``fn`` inside a profiler range of its own name: the name a trace
+    shows over the kernels it launches (no cost worth measuring when no
+    profiler runs)."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 # ------------------------------------------------------------ plain versions
@@ -332,6 +347,7 @@ def _shifted_chol(m0, dshift, resid, emit):
     return ld, q, ws, w
 
 
+@ranged
 def shifted_logdet_q(m0, dshift, resid):
     """B1: (Σ log diag L, ‖L⁻¹r‖²) per lane, L = chol(M + diag(dshift))."""
     _check_factor_args(m0, dshift, resid)
@@ -342,6 +358,7 @@ def shifted_logdet_q(m0, dshift, resid):
     return ld, q
 
 
+@ranged
 def shifted_factor_logdet_q(m0, dshift, resid):
     """B2: (ld, q, L, w = L⁻¹r); L lower-triangular with exact zeros above."""
     _check_factor_args(m0, dshift, resid)
@@ -352,6 +369,7 @@ def shifted_factor_logdet_q(m0, dshift, resid):
     return out
 
 
+@ranged
 def logdet_q(kmat, resid):
     """B4a: (Σ log diag L, ‖L⁻¹r‖²) per lane, L = chol(K) of an assembled K."""
     _check_factor_args(kmat, None, resid)
@@ -362,6 +380,7 @@ def logdet_q(kmat, resid):
     return ld, q
 
 
+@ranged
 def factor_logdet_q(kmat, resid):
     """B4b: (ld, q, L, w = L⁻¹r) of an assembled K; L lower-triangular with
     exact zeros above."""
@@ -373,6 +392,7 @@ def factor_logdet_q(kmat, resid):
     return out
 
 
+@ranged
 def tri_inverse(lmat):
     """B3: X = L⁻¹ for lower-triangular [K, N, N] (upper part ignored)."""
     _check_square(lmat, "lmat")

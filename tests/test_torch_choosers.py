@@ -1,7 +1,7 @@
 """The port's choosers on the CPU: a Branin run through the JAX package's
 sync harness, the state file both packages share, the grid-only chooser,
 the degenerate-suggestion fallback, the memory policy and the options
-that are not ported yet.
+(``profile_dir`` and band mode taken, unknown chooser names refused).
 """
 
 import math
@@ -209,9 +209,21 @@ def test_unported_options_raise(tmp_path):
     assert isinstance(sel, (int, tuple))
     ev = [e for e in ch.events.read() if e["kind"] == "suggest"][-1]
     assert ev["band_joint"] is False and ev["n_ok"] > 0
-    with pytest.raises(NotImplementedError, match="A6"):
-        get_chooser("GPEIOptChooser", str(tmp_path),
-                    f"profile_dir={tmp_path},device=cpu")
+    # profile_dir is ported: the option is taken and the call writes one
+    # trace that parses, holding the step's stage ranges
+    prof_dir = tmp_path / "prof"
+    ch = get_chooser("GPEIOptChooser", str(tmp_path),
+                     f"profile_dir={prof_dir},chains=2,mcmc_iters=2,"
+                     "burnin=2,grid_subset=2,lbfgs_iters=3,device=cpu")
+    assert ch.profile_dir == str(prof_dir)
+    sel = ch.next(grid, values, np.zeros(20), np.arange(6, 20),
+                  np.array([], int), np.arange(6))
+    assert isinstance(sel, (int, tuple))
+    (trace_file,) = os.listdir(prof_dir)
+    from spearmint_tpu_torch.utils import trace
+    assert set(trace.ranges(trace.load(os.path.join(prof_dir, trace_file)),
+                            trace.STAGE_PREFIX)) == {
+        "stage:mcmc", "stage:caches", "stage:ei", "stage:lbfgs"}
     # the numpy-only choosers are ported (RandomChooser included): only a
     # name the registry does not know raises
     assert type(get_chooser("RandomChooser", str(tmp_path))).__name__ == \

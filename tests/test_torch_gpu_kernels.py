@@ -26,7 +26,10 @@ give bit-identical ld and q from call to call.  Inputs are M = F Fᵀ/8
 (rank 8) plus shifts in [0.1, 0.4], so cond ≈ n/0.1 and float32 errors
 stay near n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4
 absolute (entries O(1)), w 5e-4 of its largest entry, X 5e-4 absolute
-(entries up to ~3).
+(entries up to ~3).  Two cases hold the instruments on the card: a
+profiled flagship ``next`` whose trace holds B1-B3's ranges with device
+events, as many as the wrappers counted, and a sweep's loop counters
+(``with_counts``) against the B1 launch counter.
 """
 
 import numpy as np
@@ -630,3 +633,76 @@ def test_band_mode_suggest_step_launches_b5_and_b1(cuda):
     assert bool(torch.isfinite(res.ei).all())
     assert band.launches["cr_logdet_q"] > 0
     assert gk.launches["shifted_logdet_q"] > 0
+
+
+def _harness_like(n=470, seed=2):
+    """A chooser's arguments with n completions (pad 512)."""
+    rng = np.random.RandomState(seed)
+    grid = rng.rand(n + 200, 2)
+    values = np.full(len(grid), np.nan)
+    values[:n] = np.sin(3 * grid[:n, 0]) + 0.05 * rng.randn(n)
+    return (grid, values, np.ones(len(grid)), np.arange(n, len(grid)),
+            np.array([], int), np.arange(n))
+
+
+def test_profiled_chooser_step_holds_every_kernel_range(cuda, tmp_path):
+    """A flagship ``next`` at pad 512 with profile_dir: one trace, whose
+    B1/B2/B3 ranges appear as many times as the wrappers counted launches
+    in the call, each holding device events (the chooser itself raises on
+    a trace that lost them)."""
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.utils import trace
+
+    gk = cuda
+    prof = tmp_path / "prof"
+    ch = get_chooser("GPEIOptChooser", str(tmp_path),
+                     "chains=4,mcmc_iters=4,burnin=2,grid_subset=4,"
+                     "lbfgs_iters=5,device=cuda")
+    args = _harness_like()
+    ch.next(*args)                         # the burn-in, not profiled
+    ch.profile_dir = str(prof)
+    gk.reset_launches()
+    ch.next(*args)
+    (name,) = [f.name for f in prof.iterdir()]
+    got = trace.ranges(trace.load(str(prof / name)), trace.KERNEL_RANGES)
+    for k in ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse"):
+        assert gk.launches[k] > 0 and len(got[k]) == gk.launches[k], (k, got)
+        assert min(got[k]) >= 1, (k, got[k])
+
+
+def test_with_counts_on_the_card_equals_b1_launches(cuda):
+    """A carried sweep at pad 512, 10 chains: the lockstep evaluations of
+    its counters (Σ over moves of max over chains of lo + up + sh + 2; the
+    carry gives every move its lp0) equal the B1 launches, and the states
+    are bit for bit those of the sweep without counters."""
+    from spearmint_tpu_torch.engine.suggest import init_chain_states
+    from spearmint_tpu_torch.mcmc.chains import (
+        MCMCConfig, sample_hypers_lp, seed_lp,
+    )
+    from spearmint_tpu_torch.mcmc.slice import move_evals
+
+    gk = cuda
+    grid, values = _harness_like()[:2]
+    n, pad = 470, 512
+    xp = np.zeros((pad, 2), np.float32); xp[:n] = grid[:n]
+    yp = np.zeros(pad, np.float32); yp[:n] = values[:n]
+    x, y = torch.tensor(xp, device="cuda"), torch.tensor(yp, device="cuda")
+    m = torch.tensor(np.arange(pad) < n, device="cuda")
+    h = init_chain_states(y, m, 2, 10)
+    cfg = MCMCConfig()
+    lp = seed_lp(x, y, m, h, cfg)
+    assert bool(torch.isfinite(lp).all())
+    g_on, g_off = (torch.Generator(device="cuda") for _ in range(2))
+    g_on.manual_seed(3)
+    g_off.manual_seed(3)
+    h_off, lp_off = h, lp
+    for _ in range(3):
+        gk.reset_launches()
+        h, lp, (c_joint, c_ls) = sample_hypers_lp(g_on, h, lp, x, y, m, cfg,
+                                                  with_counts=True)
+        lockstep = int(move_evals(c_joint, True).max()
+                       + move_evals(c_ls, True).max(0).values.sum())
+        assert gk.launches["shifted_logdet_q"] == lockstep
+        h_off, lp_off = sample_hypers_lp(g_off, h_off, lp_off, x, y, m, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(h, h_off))
+        assert torch.equal(lp, lp_off)

@@ -260,3 +260,223 @@ def test_posterior_moments_match_jax_and_golden():
         o_lo, o_hi = np.percentile(ours["amp2"], [25, 75])
         r_lo, r_hi = np.percentile(ref["amp2"], [25, 75])
         assert o_lo < r_hi and r_lo < o_hi
+
+
+# ------------------------------------------------------ loop counters
+def _counting(fn):
+    """fn and the list that gets one entry per batched call of it."""
+    calls = []
+
+    def wrapped(x):
+        calls.append(1)
+        return fn(x)
+
+    return wrapped, calls
+
+
+def _lockstep(counts, stepped_out):
+    """Calls a sweep's batched loops make by the identity of
+    ``slice.move_evals``: max over chains of each move's evaluations,
+    summed over the moves (counts [K, 3] or [K, D, 3])."""
+    evals = tslice.move_evals(counts, stepped_out)
+    if evals.ndim == 1:
+        evals = evals[:, None]
+    return int(evals.max(0).values.sum())
+
+
+@pytest.mark.parametrize("compwise", [False, True])
+@pytest.mark.parametrize("with_lp0", [False, True])
+def test_counts_are_the_loops_own_record(compwise, with_lp0):
+    """Counts of a sweep from finite starts: the batched logprob calls
+    equal Σ over moves of max over chains (lo + up + sh + 2), plus one
+    seed evaluation when lp0 is not given; the layout is the JAX
+    sampler's ([K, 3] joint, [K, D, 3] compwise)."""
+    def lp_fn(x):
+        return -1.5 * ((x - 0.7) ** 2).sum(-1) - (x[:, 0] * x[:, -1]) ** 2
+
+    x0 = torch.tensor([[0.2, -0.4, 0.1], [1.0, 0.3, 2.0], [0.0, 0.0, 0.0],
+                       [3.0, -1.0, 0.5]])
+    for seed in range(5):
+        logprob, calls = _counting(lp_fn)
+        lp0 = lp_fn(x0) if with_lp0 else None
+        _, lp, counts = tslice.slice_sample(
+            _gen(seed), x0, logprob, compwise=compwise, lp0=lp0,
+            with_counts=True)
+        assert counts.dtype == torch.int32
+        assert counts.shape == ((4, 3, 3) if compwise else (4, 3))
+        seed_evals = 0 if with_lp0 else 1
+        assert len(calls) == _lockstep(counts, True) + seed_evals, seed
+
+
+@pytest.mark.parametrize("with_lp0", [False, True])
+def test_counts_of_chains_that_start_at_neg_inf(with_lp0):
+    """A chain at a −inf point does not step out: its move's evaluations
+    are its shrink count alone, and the batch's calls still follow the
+    identity with those chains marked as not stepped out."""
+    def lp_fn(x):
+        return torch.where(x[:, 0].abs() < 1e-3, float("-inf"),
+                           -(x ** 2).sum(-1))
+
+    x0 = torch.tensor([[0.0, 0.5], [0.8, 0.1], [0.0, -0.3], [-0.4, 0.2]])
+    started = torch.isfinite(lp_fn(x0))
+    assert started.tolist() == [False, True, False, True]
+    for seed in range(5):
+        logprob, calls = _counting(lp_fn)
+        _, lp, counts = tslice.slice_sample(
+            _gen(seed), x0, logprob, lp0=lp_fn(x0) if with_lp0 else None,
+            with_counts=True)
+        assert bool((counts[~started, :2] == 0).all())
+        assert len(calls) == (_lockstep(counts, started)
+                              + (0 if with_lp0 else 1)), seed
+
+
+@pytest.mark.parametrize("compwise", [False, True])
+def test_counts_off_means_unchanged(compwise):
+    """with_counts changes neither the draws nor the result: the states,
+    the densities and the generator's state after the sweep are bit for
+    bit those of the same sweep without it."""
+    def logprob(x):
+        return -1.5 * ((x - 0.7) ** 2).sum(-1)
+
+    x0 = torch.tensor([[0.2, -0.4], [1.0, 0.3], [0.0, 0.0]])
+    for seed in range(4):
+        g_off, g_on = _gen(seed), _gen(seed)
+        x_off, lp_off = tslice.slice_sample(g_off, x0, logprob,
+                                            compwise=compwise)
+        x_on, lp_on, _ = tslice.slice_sample(g_on, x0, logprob,
+                                             compwise=compwise,
+                                             with_counts=True)
+        assert torch.equal(x_off, x_on) and torch.equal(lp_off, lp_on)
+        assert torch.equal(g_off.get_state(), g_on.get_state())
+
+
+def test_sweep_counts_are_the_marginals_own_record():
+    """sample_hypers_lp's counters: the GP marginal evaluations of a
+    carried sweep equal the joint move's and each ls move's lockstep
+    evaluations (no seed evaluation: the carry gives lp0), and the states
+    equal those of the sweep without counters."""
+    _, _, xp, yp, mask = _gp_data()
+    xt, yt, mt = torch.tensor(xp), torch.tensor(yp), torch.tensor(mask)
+    marginal, calls = _counting(None)
+    base = MCMCConfig()
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return base.marginal(*a, **kw)
+
+    cfg = MCMCConfig(marginal=counted)
+    h0 = init_chain_states(yt, mt, 2, 6)
+    lp0 = marginal_at(xt, yt, mt, h0, base)
+    g_on, g_off = _gen(7), _gen(7)
+    h_on, lp_on, h_off, lp_off = h0, lp0, h0, lp0
+    for _ in range(4):
+        calls.clear()
+        assert bool(torch.isfinite(lp_on).all())
+        h_on, lp_on, (c_joint, c_ls) = sample_hypers_lp(
+            g_on, h_on, lp_on, xt, yt, mt, cfg, with_counts=True)
+        assert c_joint.shape == (6, 3) and c_ls.shape == (6, 2, 3)
+        assert len(calls) == _lockstep(c_joint, True) + _lockstep(c_ls, True)
+        h_off, lp_off = sample_hypers_lp(g_off, h_off, lp_off, xt, yt, mt,
+                                         base)
+        assert all(torch.equal(a, b) for a, b in zip(h_on, h_off))
+        assert torch.equal(lp_on, lp_off)
+
+
+def _jax_sweep_counts(xp, yp, mask, chains, sweeps, seed):
+    """The JAX package's counters over ``sweeps`` carried sweeps from the
+    reference-init states, threaded by hand as bin/profile_slice_counts.py
+    does: (joint [S, K, 3], ls [S, K, D, 3], started finite [S, K])."""
+    from spearmint_tpu.engine.suggest import init_chain_states as j_init
+
+    xj, yj, mj = jnp.asarray(xp), jnp.asarray(yp), jnp.asarray(mask)
+    mcfg = jchains.MCMCConfig()
+
+    def one(k, hh, lp0):
+        k_joint, k_ls = jax.random.split(k)
+        vec0 = jnp.stack([hh.mean, hh.amp2, hh.noise])
+        vec, lp_joint, c_joint = jax_slice_sample(
+            k_joint, vec0,
+            lambda v: jchains._joint_logprob(v, xj, yj, mj, hh.ls, mcfg),
+            compwise=False,
+            lp0=lp0 + jchains._joint_prior_terms(hh.amp2, hh.noise, mcfg),
+            with_lp=True, with_counts=True)
+        mid = jchains.GPHypers(vec[0], vec[1], vec[2], hh.ls)
+        ls, lp_ls, c_ls = jax_slice_sample(
+            k_ls, hh.ls,
+            lambda ls: jchains._ls_logprob(ls, xj, yj, mj, mid, mcfg),
+            compwise=True,
+            lp0=lp_joint - jchains._joint_prior_terms(vec[1], vec[2], mcfg),
+            with_lp=True, with_counts=True)
+        return (jchains.GPHypers(vec[0], vec[1], vec[2], ls), lp_ls,
+                c_joint, c_ls)
+
+    sweep = jax.jit(lambda k, h, lp: jax.vmap(one)(
+        jax.random.split(k, chains), h, lp))
+    h = j_init(yj, mj, xp.shape[1], chains)
+    lp = jax.jit(jax.vmap(
+        lambda hh: jchains.marginal_at(xj, yj, mj, hh, mcfg)))(h)
+    key = jax.random.PRNGKey(seed)
+    cj, cl, fin = [], [], []
+    for _ in range(sweeps):
+        key, k = jax.random.split(key)
+        fin.append(np.isfinite(np.asarray(lp)))
+        h, lp, c_joint, c_ls = sweep(k, h, lp)
+        cj.append(np.asarray(c_joint))
+        cl.append(np.asarray(c_ls))
+    return np.stack(cj), np.stack(cl), np.stack(fin)
+
+
+def _evals_match_jax(x, y, sweeps=20):
+    """Evaluations per move of the port's sweeps (the slice-count tool's
+    ``collect``) and the JAX package's on the same data: two-sample KS on
+    the joint move's and on the ls moves' per-chain evaluations, each
+    p > 0.01 (the threshold of tests/test_slice.py).  Returns both
+    packages' means."""
+    from spearmint_tpu_torch.core.linalg import pad_bucket
+    from spearmint_tpu_torch.tools import profile_slice_counts as tool
+
+    n, d = x.shape
+    pad = pad_bucket(n)
+    xp = np.zeros((pad, d), np.float32); xp[:n] = x
+    yp = np.zeros(pad, np.float32); yp[:n] = y
+    ours = tool.collect(sweeps, x, y, device="cpu")
+    chains = tool.CHAINS
+    theirs = _jax_sweep_counts(xp, yp, np.arange(pad) < n, chains, sweeps,
+                               seed=0)
+    means = {}
+    for pkg, (cj, cl, fin) in (("port", ours), ("jax", theirs)):
+        assert cj.shape == (sweeps, chains, 3)
+        assert cl.shape == (sweeps, chains, d, 3)
+        assert fin.all(), pkg     # every move stepped out
+        stats = tool.summarize(cj, cl, fin)
+        means[pkg] = {"joint": (cj.sum(-1) + 2).ravel(),
+                      "ls": (cl.sum(-1) + 2).ravel(),
+                      "lockstep_mean": stats["lockstep_mean"]}
+    for move in ("joint", "ls"):
+        _, p = sps.ks_2samp(means["port"][move], means["jax"][move])
+        assert p > 0.01, (move, p, means["port"][move].mean(),
+                          means["jax"][move].mean())
+    return {pkg: {k: float(np.mean(v)) for k, v in m.items()}
+            for pkg, m in means.items()}
+
+
+def test_counts_match_jax_in_distribution():
+    """n=96 of the flagship's synthetic data, 10 chains, 20 sweeps."""
+    from spearmint_tpu_torch.tools.profile_slice_counts import make_problem
+
+    x, y = make_problem(96, 2)
+    print(_evals_match_jax(x.astype(np.float32), y.astype(np.float32)))
+
+
+@pytest.mark.slow
+def test_counts_match_jax_at_the_harness_branin_data():
+    """The sync harness's n=450 Branin completions (pad 512, the pad from
+    which the card runs B1), 10 chains, 4 sweeps.  Slow: the joint move
+    steps out 400-600 times a sweep on the raw Branin values, and the
+    plain blocked factorization at pad 512 takes 0.2 s an evaluation on
+    one CPU thread (about 8 minutes for the port's sweeps)."""
+    from spearmint_tpu_torch.tools.profile_slice_counts import branin_problem
+
+    x, y = branin_problem(450)
+    print(_evals_match_jax(x.astype(np.float32), y.astype(np.float32),
+                           sweeps=4))

@@ -157,9 +157,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the constrained chooser, band mode, EI per second, the store, the sync
     and async harnesses, the drivers, lite, the status page, the terminal
     view and the numpy-only choosers included), runs a tiny CPU suggestion,
-    a tiny CPU constrained suggestion, a tiny CPU band-mode suggestion and
-    a tiny CPU EI-per-second suggestion, and has loaded no module of jax or
-    of spearmint_tpu."""
+    a tiny CPU constrained suggestion, a tiny CPU band-mode suggestion, a
+    tiny CPU EI-per-second suggestion, the slice-count tool and a chooser
+    ``next`` traced into ``profile_dir``, and has loaded no module of jax
+    or of spearmint_tpu."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import spearmint_tpu_torch",
@@ -230,6 +231,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                         mcmc_iters=1, lbfgs_iters=3,",
         "                         grid_subset=2), device='cpu')",
         "assert int(r.n_ok) > 0 and bool(torch.isfinite(r.ei_per_s).all())",
+        "torch.set_num_threads(1)",
+        "from spearmint_tpu_torch.tools import profile_slice_counts as psc",
+        "assert psc.main(['2', '24', '--device', 'cpu'])['lockstep_mean'] > 0",
+        "import os, tempfile",
+        "d = tempfile.mkdtemp()",
+        "ch = get_chooser('GPEIOptChooser', d, 'profile_dir=' + d + '/prof,'",
+        "                 'chains=2,mcmc_iters=2,burnin=2,grid_subset=2,'",
+        "                 'lbfgs_iters=3,device=cpu')",
+        "grid = rng.rand(12, 2)",
+        "vals = np.full(12, np.nan); vals[:5] = rng.randn(5)",
+        "ch.next(grid, vals, np.zeros(12), np.arange(5, 12),",
+        "        np.array([], int), np.arange(5))",
+        "assert len(os.listdir(d + '/prof')) == 1",
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')",
         "       or k == 'spearmint_tpu' or k.startswith('spearmint_tpu.')]",
         "print('LOADED', bad)",
