@@ -29,6 +29,7 @@ from spearmint_tpu_torch.core.likelihood import (
     cross_cov,
     unit_cov_matrix,
 )
+from spearmint_tpu_torch.utils import trace
 
 
 class PosteriorCache(NamedTuple):
@@ -129,7 +130,10 @@ def ei_from_cache_chunked(cache: PosteriorCache, x, mask, cand,
                           kernel: Callable = matern52,
                           chunk: int = 512) -> torch.Tensor:
     """EI over a large candidate set, ``chunk`` candidates at a time to
-    bound the [S, N, chunk] temporaries.  Same values as unchunked."""
+    bound the [S, N, chunk] temporaries.  Same values as unchunked.
+    Counts each chunk as ``ei:chunks`` (``utils/trace``)."""
+    starts = range(0, cand.shape[0], chunk)
+    trace.count("ei:chunks", len(starts))
     parts = [ei_from_cache(cache, x, mask, cand[i:i + chunk], kernel)
-             for i in range(0, cand.shape[0], chunk)]
+             for i in starts]
     return torch.cat(parts, dim=-1)

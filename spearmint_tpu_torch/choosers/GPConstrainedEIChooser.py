@@ -21,6 +21,8 @@ vectors are re-padded keeping their aligned prefix.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -64,6 +66,7 @@ class GPConstrainedEIChooser(GPEIOptChooser):
             SuggestConfig, init_chain_states,
         )
 
+        t_call, burn_s = time.perf_counter(), 0.0
         grid = np.asarray(grid)
         ndim = grid.shape[1]
         comp = grid[complete].astype(np.float32)
@@ -112,10 +115,12 @@ class GPConstrainedEIChooser(GPEIOptChooser):
             ff[:, :keep] = ff_old[:, :keep]
             self._constraint = self._constraint._replace(ff=ff)
         if not self._burned_in and self.burnin_steps > 0:
+            t_burn = time.perf_counter()
             self._hypers = self._burn_chains(gen, self._hypers, xt, yt, vm)
             self._constraint = burnin_constraint_states(
                 gen, self._constraint, xt, zt, om, self.burnin_steps)
             self._burned_in = True
+            burn_s = time.perf_counter() - t_burn
 
         # mcmc_iters = samples per suggestion, spread across the chains
         iters_per_chain = max(1, -(-self.mcmc_iters // self.chains))
@@ -130,9 +135,11 @@ class GPConstrainedEIChooser(GPEIOptChooser):
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
         )
-        res, latency = self._timed_step(lambda: suggest_step_constrained(
-            gen, self._hypers, self._constraint, xt, yt, vm, om, cand_p,
-            cand_mask, cfg, device=dev))
+        prepare_s = time.perf_counter() - t_call - burn_s
+        res, latency, step_fields = self._timed_step(
+            lambda st: suggest_step_constrained(
+                gen, self._hypers, self._constraint, xt, yt, vm, om, cand_p,
+                cand_mask, cfg, device=dev, stage_times=st))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # replaces neither chain family: a stuck state would carry over to
@@ -141,9 +148,9 @@ class GPConstrainedEIChooser(GPEIOptChooser):
             self._hypers = res.hypers
             self._constraint = res.constraint
         self._key_state += 1
-        self._save_state()
+        host_s = self._timed_save(prepare_s)
         self._emit_suggest(
-            latency, n, 0, c,
+            latency, n, 0, c, host_s=host_s, **step_fields,
             acq_best=float(res.best_cand_acq), acq_opt=float(res.acq_opt),
             n_valid=int(valid.sum()),
             c_amp2_med=float(res.constraint.amp2.median()),

@@ -18,6 +18,15 @@ Band mode (``band_joint_min`` > 0) routes as the JAX chooser does, with
 the card in place of the TPU (``band_gate``): on the CPU the chooser runs
 dense, as the JAX one does off the TPU.
 
+The ``suggest`` event is the operator's record of a call: beside its
+latency, counts and chain statistics it carries ``stage_s`` (the step's
+seconds by stage, on the device's clock), ``counts`` (the program's
+counters that the step moved, ``utils/trace``: slice evaluations and
+host reads, EI chunks, L-BFGS iterations and useful iterations),
+``host_s`` (``prepare``: padding, copies and the state load, burn-in
+left out; ``save``: the state-file write) and ``call`` (the key state,
+which also names the call's ``profile_dir`` trace).
+
 ``profile_dir``: each suggestion's step runs under ``torch.profiler`` and
 one Chrome trace per call is written there (``utils/trace``), as the JAX
 chooser writes one ``jax.profiler`` trace per call; a trace that lost the
@@ -49,6 +58,7 @@ from spearmint_tpu_torch.convert import hypers_from_numpy, hypers_to_numpy
 from spearmint_tpu_torch.engine import distributed
 from spearmint_tpu_torch.engine.obs_shard import use_obs_gate
 from spearmint_tpu_torch.store.locker import Locker
+from spearmint_tpu_torch.utils import trace
 from spearmint_tpu_torch.utils.args import unpack_args
 from spearmint_tpu_torch.utils.events import EventLog
 from spearmint_tpu_torch.utils.platform import resolve_device
@@ -149,6 +159,14 @@ class GPEIOptChooser:
         if distributed.world_size() > 1:
             torch.distributed.barrier()
 
+    def _timed_save(self, prepare_s: float) -> dict:
+        """``_save_state``, and the event's ``host_s``: ``prepare_s`` and
+        the write's seconds."""
+        t0 = time.perf_counter()
+        self._save_state()
+        return {"prepare": round(prepare_s, 6),
+                "save": round(time.perf_counter() - t0, 6)}
+
     # ------------------------------------------------------ shared helpers
     def _memory_policy(self, pad):
         """Resolve (chain_chunk, explicit_inverse) for this bucket size:
@@ -204,13 +222,13 @@ class GPEIOptChooser:
         return use_obs_gate(self.obs_shard_min, distributed.world_size(),
                             pad, n_pending)
 
-    def _obs_step(self, cfg, factory="sharded_suggest_obs"):
+    def _obs_step(self, cfg, stage_times, factory="sharded_suggest_obs"):
         """The obs-sharded step over every rank of the default group
         (``factory``: the per-sec chooser's ``sharded_suggest_per_sec``)."""
         from spearmint_tpu_torch.engine import obs_shard
 
         return getattr(obs_shard, factory)(
-            obs_shard.make_obs_mesh(device=self.device), cfg)
+            obs_shard.make_obs_mesh(device=self.device), cfg, stage_times)
 
     def _choose(self, candidates, best_cand, best_value, x_opt, opt_value):
         """The refined point as an ``(value, x)`` invention if it beats the
@@ -223,16 +241,32 @@ class GPEIOptChooser:
         return int(candidates[int(best_cand)])
 
     def _timed_step(self, step):
-        """``step()`` and its seconds up to a device synchronize (the event
-        log's latency).  With ``profile_dir``, on the coordinator, under
+        """``step(stage_times)``, its seconds up to a device synchronize
+        (the event log's latency), and the event's fields of the step:
+        ``stage_s``, ``counts`` (the counters the step moved; L-BFGS's are
+        counted here, after the synchronize, where a refinement ran) and
+        ``call``.  With ``profile_dir``, on the coordinator, under
         ``torch.profiler``: one trace per call."""
+        before = trace.counters()
+        stages = {}
         if self.profile_dir and distributed.is_coordinator():
-            return self._profiled_step(step)
-        t0 = time.perf_counter()
-        res = step()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return res, time.perf_counter() - t0
+            res, latency = self._profiled_step(lambda: step(stages))
+        else:
+            t0 = time.perf_counter()
+            res = step(stages)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            latency = time.perf_counter() - t0
+        useful = getattr(res, "lbfgs_useful", None)
+        if useful is not None:
+            trace.count("lbfgs:iters", self.lbfgs_iters)
+            trace.count("lbfgs:useful_iters", int(useful))
+        counts = {k: n - before.get(k, 0)
+                  for k, n in trace.counters().items()
+                  if n != before.get(k, 0)}
+        fields = {"stage_s": {k: round(v, 6) for k, v in stages.items()},
+                  "counts": counts, "call": self._key_state}
+        return res, latency, fields
 
     def _profiled_step(self, step):
         """``_timed_step`` under ``torch.profiler`` (the CPU, and the card
@@ -301,6 +335,7 @@ class GPEIOptChooser:
             SuggestConfig, init_chain_states, suggest_step,
         )
 
+        t_call, burn_s = time.perf_counter(), 0.0
         grid = np.asarray(grid)
         ndim = grid.shape[1]
         comp = grid[complete].astype(np.float32)
@@ -338,8 +373,10 @@ class GPEIOptChooser:
         if self._hypers is None:
             self._hypers = init_chain_states(yt, mt, ndim, self.chains)
         if not self._burned_in and self.burnin_steps > 0:
+            t_burn = time.perf_counter()
             self._hypers = self._burn_chains(gen, self._hypers, xt, yt, mt)
             self._burned_in = True
+            burn_s = time.perf_counter() - t_burn
 
         # mcmc_iters = samples PER SUGGESTION, spread across the chains
         iters_per_chain = max(1, -(-self.mcmc_iters // self.chains))
@@ -357,13 +394,16 @@ class GPEIOptChooser:
             explicit_inverse=explicit_inv,
             band_joint=band_gate(self.band_joint_min, pad, use_obs, dev),
         )
+        prepare_s = time.perf_counter() - t_call - burn_s
         if use_obs:
-            res, latency = self._timed_step(lambda: self._obs_step(cfg)(
-                gen, self._hypers, xt, yt, mt, cand_p, cand_mask))
+            res, latency, step_fields = self._timed_step(
+                lambda st: self._obs_step(cfg, st)(
+                    gen, self._hypers, xt, yt, mt, cand_p, cand_mask))
         else:
-            res, latency = self._timed_step(lambda: suggest_step(
-                gen, self._hypers, xt, yt, mt, pend_p, pend_mask, cand_p,
-                cand_mask, cfg, device=dev))
+            res, latency, step_fields = self._timed_step(
+                lambda st: suggest_step(
+                    gen, self._hypers, xt, yt, mt, pend_p, pend_mask, cand_p,
+                    cand_mask, cfg, device=dev, stage_times=st))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # does not replace the chain states: a stuck state would carry
@@ -371,9 +411,9 @@ class GPEIOptChooser:
         if n_ok > 0:
             self._hypers = res.hypers
         self._key_state += 1
-        self._save_state()
+        host_s = self._timed_save(prepare_s)
         self._emit_suggest(
-            latency, n, p, c,
+            latency, n, p, c, host_s=host_s, **step_fields,
             ei_best=float(res.best_cand_ei), ei_opt=float(res.ei_opt),
             amp2_med=float(res.hypers.amp2.median()),
             noise_med=float(res.hypers.noise.median()),

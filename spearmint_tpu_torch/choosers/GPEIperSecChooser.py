@@ -30,6 +30,8 @@ writes the state and the events.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -77,6 +79,7 @@ class GPEIperSecChooser(GPEIOptChooser):
             SuggestConfig, init_chain_states,
         )
 
+        t_call, burn_s = time.perf_counter(), 0.0
         grid = np.asarray(grid)
         ndim = grid.shape[1]
         comp = grid[complete].astype(np.float32)
@@ -118,10 +121,12 @@ class GPEIperSecChooser(GPEIOptChooser):
             self._time_hypers = init_chain_states(tt, mt, ndim, self.chains)
         if not self._burned_in and self.burnin_steps > 0:
             # the reference's _real_init burn-in, for both families
+            t_burn = time.perf_counter()
             self._hypers = self._burn_chains(gen, self._hypers, xt, yt, mt)
             self._time_hypers = self._burn_chains(gen, self._time_hypers,
                                                   xt, tt, mt)
             self._burned_in = True
+            burn_s = time.perf_counter() - t_burn
 
         # mcmc_iters = samples per suggestion, spread across the chains
         iters_per_chain = max(1, -(-self.mcmc_iters // self.chains))
@@ -138,15 +143,18 @@ class GPEIperSecChooser(GPEIOptChooser):
             chain_chunk=chain_chunk,
             explicit_inverse=explicit_inv,
         )
+        prepare_s = time.perf_counter() - t_call - burn_s
         if use_obs:
-            res, latency = self._timed_step(lambda: self._obs_step(
-                cfg, "sharded_suggest_per_sec")(
-                gen, self._hypers, self._time_hypers, xt, yt, tt, mt, cand_p,
-                cand_mask))
+            res, latency, step_fields = self._timed_step(
+                lambda st: self._obs_step(cfg, st, "sharded_suggest_per_sec")(
+                    gen, self._hypers, self._time_hypers, xt, yt, tt, mt,
+                    cand_p, cand_mask))
         else:
-            res, latency = self._timed_step(lambda: suggest_step_per_sec(
-                gen, self._hypers, self._time_hypers, xt, yt, tt, mt, pend_p,
-                pend_mask, cand_p, cand_mask, cfg, device=dev))
+            res, latency, step_fields = self._timed_step(
+                lambda st: suggest_step_per_sec(
+                    gen, self._hypers, self._time_hypers, xt, yt, tt, mt,
+                    pend_p, pend_mask, cand_p, cand_mask, cfg, device=dev,
+                    stage_times=st))
         n_ok = int(res.n_ok)
         # Unlike the JAX chooser, a sweep in which every sample failed
         # replaces neither chain family; the key still advances.
@@ -154,9 +162,9 @@ class GPEIperSecChooser(GPEIOptChooser):
             self._hypers = res.hypers
             self._time_hypers = res.time_hypers
         self._key_state += 1
-        self._save_state()
+        host_s = self._timed_save(prepare_s)
         self._emit_suggest(
-            latency, n, p, c,
+            latency, n, p, c, host_s=host_s, **step_fields,
             ei_best=float(res.best_cand_ei), ei_opt=float(res.ei_opt),
             time_amp2_med=float(res.time_hypers.amp2.median()),
             mode="obs_shard" if use_obs else "chains",

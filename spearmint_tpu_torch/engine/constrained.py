@@ -40,6 +40,7 @@ from spearmint_tpu_torch.engine.suggest import (
 )
 from spearmint_tpu_torch.mcmc.ess import elliptical_slice
 from spearmint_tpu_torch.mcmc.slice import slice_sample
+from spearmint_tpu_torch.utils import trace
 from spearmint_tpu_torch.utils.platform import resolve_device
 
 ESS_SWEEPS = 4
@@ -68,6 +69,8 @@ class ConstrainedResult(NamedTuple):
                                  # caches are finite
     samples: GPHypers            # [S] this call's value samples
     c_samples: ConstraintState   # [S] this call's constraint samples
+    lbfgs_useful: torch.Tensor = None  # L-BFGS's useful_iters; None
+                                       # where no refinement ran
 
 
 class ConstraintCache(NamedTuple):
@@ -237,8 +240,8 @@ def suggest_step_constrained(
     ``"cpu"`` must be asked for).  Inputs as in the JAX package, padded
     with masks; y is 0 where invalid or padded.  ``gen`` is a
     torch.Generator on the same device.  With ``stage_times`` (a dict) the
-    device is synchronized at each stage boundary and the seconds of the
-    mcmc / constraint / caches / acq / lbfgs stages are added to it."""
+    seconds of the mcmc / constraint / caches / acq / lbfgs stages are
+    added to it, as ``engine.suggest.suggest_step`` adds them."""
     dev = resolve_device(device)
 
     def put(a, dtype=torch.float32):
@@ -253,13 +256,14 @@ def suggest_step_constrained(
     chains = hypers.mean.shape[0]
     kernel = config.kernel
     z = torch.where(valid_mask, 1.0, -1.0).to(x.dtype)
+    clock = trace.StageClock(stage_times, dev)
 
     # ---- value GP over the valid observations --------------------------
-    with _stage(stage_times, "mcmc", dev):
+    with _stage(clock, "mcmc"):
         h_last, flat = _sample_chains(gen, hypers, x, y, valid_mask, config)
 
     # ---- constraint model over all observations ------------------------
-    with _stage(stage_times, "constraint", dev):
+    with _stage(clock, "constraint"):
         c_parts, cs_parts = [], []
         for sl in _groups(chains, config.chain_chunk):
             c = _take(constraint, sl)
@@ -273,7 +277,7 @@ def suggest_step_constrained(
         c_last, c_flat = _cat(c_parts), _cat(cs_parts)
 
     # ---- one factorization per sample and model ------------------------
-    with _stage(stage_times, "caches", dev):
+    with _stage(clock, "caches"):
         caches = _value_caches(x, y, valid_mask, flat, config)
         c_caches = _constraint_caches(c_flat, x, obs_mask, kernel,
                                       config.chain_chunk)
@@ -286,9 +290,10 @@ def suggest_step_constrained(
         pv = _p_valid_from_cache(c_caches, x, obs_mask, pts, kernel)
         return ei_mod.ei_from_cache(caches, x, valid_mask, pts, kernel) * pv, pv
 
-    with _stage(stage_times, "acq", dev):
-        parts = [acq_at(cand[i:i + ACQ_CHUNK])
-                 for i in range(0, cand.shape[0], ACQ_CHUNK)]
+    with _stage(clock, "acq"):
+        starts = range(0, cand.shape[0], ACQ_CHUNK)
+        trace.count("ei:chunks", len(starts))
+        parts = [acq_at(cand[i:i + ACQ_CHUNK]) for i in starts]
         acq_mean, n_ok_true = nan_robust_mean(
             torch.cat([a for a, _ in parts], -1), ok)
         pv_mean, _ = nan_robust_mean(torch.cat([p for _, p in parts], -1),
@@ -298,21 +303,24 @@ def suggest_step_constrained(
         best_cand = torch.argmax(acq_masked)
         best_cand_acq = acq_masked[best_cand]
 
-    with _stage(stage_times, "lbfgs", dev):
+    with _stage(clock, "lbfgs"):
         if config.optimize:
             def neg_acq(pts):
                 a, _ = acq_at(pts)
                 a = torch.where(ok[:, None] & torch.isfinite(a), a, 0.0)
                 return -a.sum(0) / n_ok
 
-            x_opt, acq_opt = _refine(neg_acq, cand, acq_masked, config)
+            x_opt, acq_opt, useful = _refine(neg_acq, cand, acq_masked,
+                                             config)
         else:
-            x_opt, acq_opt = cand[best_cand], best_cand_acq
+            x_opt, acq_opt, useful = cand[best_cand], best_cand_acq, None
+    clock.close()
 
     return ConstrainedResult(
         hypers=h_last, constraint=c_last, acq=acq_mean, p_valid=pv_mean,
         best_cand=best_cand, best_cand_acq=best_cand_acq, x_opt=x_opt,
-        acq_opt=acq_opt, n_ok=n_ok_true, samples=flat, c_samples=c_flat)
+        acq_opt=acq_opt, n_ok=n_ok_true, samples=flat, c_samples=c_flat,
+        lbfgs_useful=useful)
 
 
 def init_constraint_states(ndim: int, n_pad: int, chains: int,

@@ -61,6 +61,7 @@ from spearmint_tpu_torch.engine.suggest import (
     SuggestResult, _groups, _sample_chains, _stage, _take, nan_robust_mean,
 )
 from spearmint_tpu_torch.mcmc.chains import MCMCConfig, sample_hypers
+from spearmint_tpu_torch.utils import trace
 from spearmint_tpu_torch.utils.platform import resolve_device
 
 # candidates per EI chunk: bounds the [K, N, chunk] solves (the JAX
@@ -421,8 +422,8 @@ def sharded_suggest_obs(mesh: ObsMesh, config, stage_times: dict | None
 
     Returns a callable (gen, hypers[chains], x, y, mask, cand, cand_mask)
     → engine.suggest.SuggestResult, the same on every rank.  With
-    ``stage_times`` the seconds of the mcmc and ei stages (device
-    synchronized) are added to it."""
+    ``stage_times`` the seconds of the mcmc and ei stages are added to it,
+    as ``engine.suggest.suggest_step`` adds them."""
     kernel = config.kernel
     mcfg = _obs_mcmc(mesh, config.mcmc)
 
@@ -430,10 +431,11 @@ def sharded_suggest_obs(mesh: ObsMesh, config, stage_times: dict | None
         dev = mesh.device
         (hypers,), (x, y, cand), (mask, cand_mask) = _put_all(
             dev, [hypers], [x, y, cand], [mask, cand_mask])
-        with _stage(stage_times, "mcmc", dev):
+        clock = trace.StageClock(stage_times, dev)
+        with _stage(clock, "mcmc"):
             h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
                                           mcfg)
-        with _stage(stage_times, "ei", dev):
+        with _stage(clock, "ei"):
             best = torch.where(mask, y, float("inf")).min()
             parts, oks = [], []
             for sl in _groups(flat.mean.shape[0], config.chain_chunk):
@@ -448,6 +450,7 @@ def sharded_suggest_obs(mesh: ObsMesh, config, stage_times: dict | None
             ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
             best_cand, best_ei, x_best = _argmax_result(ei_mean, cand,
                                                         cand_mask)
+        clock.close()
         return SuggestResult(
             hypers=h_last, samples=flat, ei=ei_mean, best_cand=best_cand,
             best_cand_ei=best_ei, x_opt=x_best, ei_opt=best_ei, n_ok=n_ok)
@@ -477,12 +480,13 @@ def sharded_suggest_per_sec(mesh: ObsMesh, config,
             _put_all(dev, [hypers, time_hypers], [x, y, log_durs, cand],
                      [mask, cand_mask]))
         g_val, g_time, _ = split_generator(gen, 3)
-        with _stage(stage_times, "mcmc", dev):
+        clock = trace.StageClock(stage_times, dev)
+        with _stage(clock, "mcmc"):
             h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config,
                                           mcfg)
             t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs,
                                             mask, config, mcfg)
-        with _stage(stage_times, "ei", dev):
+        with _stage(clock, "ei"):
             best = torch.where(mask, y, float("inf")).min()
             parts, oks = [], []
             for sl in _groups(flat.mean.shape[0], config.chain_chunk):
@@ -507,6 +511,7 @@ def sharded_suggest_per_sec(mesh: ObsMesh, config,
             ei_mean, n_ok = nan_robust_mean(torch.cat(parts), torch.cat(oks))
             best_cand, best_ei, x_best = _argmax_result(ei_mean, cand,
                                                         cand_mask)
+        clock.close()
         return PerSecResult(
             hypers=h_last, time_hypers=t_last, ei_per_s=ei_mean,
             best_cand=best_cand, best_cand_ei=best_ei, x_opt=x_best,

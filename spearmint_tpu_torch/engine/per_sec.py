@@ -31,6 +31,7 @@ from spearmint_tpu_torch.engine.suggest import (
     SuggestConfig, _pending_caches, _refine, _sample_chains, _stage,
     _value_caches, nan_robust_mean,
 )
+from spearmint_tpu_torch.utils import trace
 from spearmint_tpu_torch.utils.platform import resolve_device
 
 # candidates per acquisition chunk: bounds the [S, N, chunk] temporaries
@@ -52,6 +53,8 @@ class PerSecResult(NamedTuple):
                                      # families are finite
     samples: GPHypers = None         # [S] this call's value samples
     time_samples: GPHypers = None    # [S] this call's duration samples
+    lbfgs_useful: torch.Tensor = None  # L-BFGS's useful_iters; None
+                                       # where no refinement ran
 
 
 def split_generator(gen: torch.Generator, n: int) -> list[torch.Generator]:
@@ -75,9 +78,8 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
     must be asked for).  Inputs as ``engine.suggest.suggest_step``'s, plus
     ``time_hypers`` [chains] (the duration GP's chain states) and
     ``log_durs`` [N] (log durations under the observations' mask).  With
-    ``stage_times`` (a dict) the device is synchronized at each stage
-    boundary and the seconds of the mcmc / caches / ei / lbfgs stages are
-    added to it."""
+    ``stage_times`` (a dict) the seconds of the mcmc / caches / ei / lbfgs
+    stages are added to it, as ``suggest_step`` adds them."""
     dev = resolve_device(device)
 
     def put(a, dtype=torch.float32):
@@ -91,16 +93,17 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
     time_hypers = GPHypers(*(put(a) for a in time_hypers))
     kernel = config.kernel
     g_val, g_time, g_fant = split_generator(gen, 3)
+    clock = trace.StageClock(stage_times, dev)
 
     # ---- MCMC: the two chain families, one [chains] batch each ---------
-    with _stage(stage_times, "mcmc", dev):
+    with _stage(clock, "mcmc"):
         h_last, flat = _sample_chains(g_val, hypers, x, y, mask, config)
         t_last, t_flat = _sample_chains(g_time, time_hypers, x, log_durs,
                                         mask, config)
     s = flat.mean.shape[0]
 
     # ---- caches: value GP (fantasies when pending), duration GP --------
-    with _stage(stage_times, "caches", dev):
+    with _stage(clock, "caches"):
         cache, x_all, mask_all = _pending_caches(g_fant, x, y, mask, pend,
                                                  pend_mask, flat, config)
         t_cache = _value_caches(x, log_durs, mask, t_flat, config)
@@ -119,9 +122,11 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
         return eis / torch.clamp_min(torch.exp(mus), MIN_SECONDS)
 
     # ---- EI/sec over the candidates, NaN-robust average over samples ---
-    with _stage(stage_times, "ei", dev):
+    with _stage(clock, "ei"):
+        starts = range(0, cand.shape[0], ACQ_CHUNK)
+        trace.count("ei:chunks", len(starts))
         per_s = torch.cat([ei_per_s_at(cand[i:i + ACQ_CHUNK])
-                           for i in range(0, cand.shape[0], ACQ_CHUNK)], -1)
+                           for i in starts], -1)
         ei_mean, n_ok_true = nan_robust_mean(per_s, ok)
         n_ok = torch.clamp_min(n_ok_true.to(ei_mean.dtype), 1.0)
         ei_masked = torch.where(cand_mask, ei_mean, float("-inf"))
@@ -129,18 +134,21 @@ def suggest_step_per_sec(gen: torch.Generator, hypers: GPHypers,
         best_cand_ei = ei_masked[best_cand]
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI/sec ----
-    with _stage(stage_times, "lbfgs", dev):
+    with _stage(clock, "lbfgs"):
         if config.optimize:
             def neg_avg(pts):
                 eis = ei_per_s_at(pts)
                 eis = torch.where(ok[:, None] & torch.isfinite(eis), eis, 0.0)
                 return -eis.sum(0) / n_ok
 
-            x_opt, ei_opt = _refine(neg_avg, cand, ei_masked, config)
+            x_opt, ei_opt, useful = _refine(neg_avg, cand, ei_masked,
+                                            config)
         else:
-            x_opt, ei_opt = cand[best_cand], best_cand_ei
+            x_opt, ei_opt, useful = cand[best_cand], best_cand_ei, None
+    clock.close()
 
     return PerSecResult(
         hypers=h_last, time_hypers=t_last, ei_per_s=ei_mean,
         best_cand=best_cand, best_cand_ei=best_cand_ei, x_opt=x_opt,
-        ei_opt=ei_opt, n_ok=n_ok_true, samples=flat, time_samples=t_flat)
+        ei_opt=ei_opt, n_ok=n_ok_true, samples=flat, time_samples=t_flat,
+        lbfgs_useful=useful)

@@ -17,7 +17,6 @@ with masks exactly as in the JAX package.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import torch
@@ -31,6 +30,7 @@ from spearmint_tpu_torch.mcmc.chains import (
     MCMCConfig, init_hypers, sample_hypers_lp, seed_lp,
 )
 from spearmint_tpu_torch.mcmc.slice import ChainShard, draw_rows
+from spearmint_tpu_torch.utils import trace
 from spearmint_tpu_torch.utils.platform import resolve_device
 
 
@@ -73,6 +73,8 @@ class SuggestResult(NamedTuple):
     n_ok: torch.Tensor = None  # samples whose cache was finite; 0 → the
                                # EI average is all zeros and carries no
                                # signal (callers fall back to grid order)
+    lbfgs_useful: torch.Tensor = None  # L-BFGS's useful_iters; None
+                                       # where no refinement ran
 
 
 def nan_robust_mean(samples: torch.Tensor, ok: torch.Tensor, reduce=None):
@@ -128,19 +130,12 @@ def _cat_caches(parts):
 
 
 @contextlib.contextmanager
-def _stage(stage_times, name, dev):
+def _stage(clock: trace.StageClock, name):
     """One stage of a step: a profiler range ``stage:<name>`` (what a trace
-    shows of the stage, as the JAX package's name stack does) and, with
-    ``stage_times`` (a dict), its seconds up to a device synchronize added
-    under ``name``."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(f"stage:{name}"):
+    shows of the stage, as the JAX package's name stack does), timed by
+    ``clock``."""
+    with trace.span(f"stage:{name}"), clock.stage(name):
         yield
-        if stage_times is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stage_times[name] = (stage_times.get(name, 0.0)
-                                 + time.perf_counter() - t0)
 
 
 def _sample_chains(gen, hypers: GPHypers, x, y, mask, config: SuggestConfig,
@@ -203,14 +198,15 @@ def _pending_caches(gen, x, y, mask, pend, pend_mask, flat: GPHypers,
 
 def _refine(neg_fun, cand, masked, config: SuggestConfig):
     """Batched projected L-BFGS on the unit box from the ``grid_subset``
-    best candidates of ``masked``; returns (best point, its value)."""
+    best candidates of ``masked``; returns (best point, its value, the
+    run's ``useful_iters``)."""
     starts = cand[torch.topk(masked, min(config.grid_subset,
                                          cand.shape[0])).indices]
     box = torch.zeros(cand.shape[1], dtype=cand.dtype, device=cand.device)
     res = minimize_lbfgs_b(neg_fun, starts, box, box + 1.0,
                            iters=config.lbfgs_iters)
     lane = torch.argmin(res.fun)
-    return res.x[lane], -res.fun[lane]
+    return res.x[lane], -res.fun[lane], res.useful_iters
 
 
 def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
@@ -222,9 +218,10 @@ def suggest_step(gen: torch.Generator, hypers: GPHypers, x, y, mask, pend,
     asked for).  Inputs as in the JAX package: x [N, D], y [N], mask [N]
     padded observations; pend [P, D], pend_mask [P]; cand [C, D],
     cand_mask [C]; hypers [chains].  ``gen`` is a torch.Generator on the
-    same device.  With ``stage_times`` (a dict) the device is synchronized
-    at each stage boundary and the seconds of the mcmc / caches / ei /
-    lbfgs stages are added to it."""
+    same device.  With ``stage_times`` (a dict) the seconds of the mcmc /
+    caches / ei / lbfgs stages are added to it, on the device's clock
+    (``utils/trace.StageClock``: the step synchronizes once, at its
+    end)."""
     return _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
                  config, resolve_device(device), stage_times)
 
@@ -243,6 +240,7 @@ def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
     hypers = GPHypers(*(put(a) for a in hypers))
     chains, c_all = hypers.mean.shape[0], cand.shape[0]
     kernel = config.kernel
+    clock = trace.StageClock(stage_times, dev)
     shard, my_cand, reduce = None, cand, None
     if mesh is not None:
         shard = mesh.chain_shard(chains)
@@ -253,18 +251,18 @@ def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
         reduce = mesh.sum_chains
 
     # ---- MCMC: chains batched, mcmc_iters carried sweeps ---------------
-    with _stage(stage_times, "mcmc", dev):
+    with _stage(clock, "mcmc"):
         h_last, flat = _sample_chains(gen, hypers, x, y, mask, config,
                                       config.mcmc._replace(chain_shard=shard))
     s = flat.mean.shape[0]
 
     # ---- posterior caches (one factorization per sample) ---------------
-    with _stage(stage_times, "caches", dev):
+    with _stage(clock, "caches"):
         cache, x_all, mask_all = _pending_caches(
             gen, x, y, mask, pend, pend_mask, flat, config, shard)
 
     # ---- EI over the candidates, NaN-robust average over samples -------
-    with _stage(stage_times, "ei", dev):
+    with _stage(clock, "ei"):
         ei_samples = ei_mod.ei_from_cache_chunked(cache, x_all, mask_all,
                                                   my_cand, kernel)
         if ei_samples.ndim == 3:                    # [S, C] | [S, F, C]
@@ -284,7 +282,7 @@ def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
         best_cand_ei = ei_masked[best_cand]
 
     # ---- off-grid refinement: batched L-BFGS on the averaged EI --------
-    with _stage(stage_times, "lbfgs", dev):
+    with _stage(clock, "lbfgs"):
         if config.optimize:
             def ei_sum(pts):
                 eis = ei_mod.ei_from_cache(cache, x_all, mask_all, pts,
@@ -297,16 +295,18 @@ def _step(gen, hypers, x, y, mask, pend, pend_mask, cand, cand_mask,
 
             if mesh is not None:
                 ei_sum = mesh.sum_chains_grad(ei_sum)
-            x_opt, ei_opt = _refine(lambda pts: -ei_sum(pts) / n_ok, cand,
-                                    ei_masked, config)
+            x_opt, ei_opt, useful = _refine(
+                lambda pts: -ei_sum(pts) / n_ok, cand, ei_masked, config)
         else:
             x_opt = cand[best_cand]
             ei_opt = best_cand_ei
+            useful = None
+    clock.close()
 
     return SuggestResult(
         hypers=h_last, samples=flat, ei=ei_mean, best_cand=best_cand,
         best_cand_ei=best_cand_ei, x_opt=x_opt, ei_opt=ei_opt,
-        n_ok=n_ok_true)
+        n_ok=n_ok_true, lbfgs_useful=useful)
 
 
 def init_chain_states(y, mask, ndim: int, chains: int) -> GPHypers:

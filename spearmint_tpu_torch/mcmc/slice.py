@@ -11,7 +11,9 @@ The JAX sampler runs one chain and vmaps it; here all K chains advance in
 lockstep as a leading batch axis.  Each loop step makes ONE batched
 ``logprob`` call for the whole chain batch; chains that have finished keep
 their state under a mask (as lanes of the vmapped ``while_loop`` do) and
-the loop ends when every chain is DONE — one host read per step.
+the loop ends when every chain is DONE — one host read per step.  Each
+evaluation is a ``slice:eval`` range and each read a ``slice:read`` range
+(``utils/trace``), counted as ``slice:evals`` and ``slice:reads``.
 Randomness comes from a ``torch.Generator``: the draws differ from
 ``jax.random``'s, so the sampler is held to the JAX one in distribution.
 
@@ -34,6 +36,8 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from spearmint_tpu_torch.utils import trace
 
 MAX_STEPS_OUT = 1000
 MAX_SHRINK = 64
@@ -67,14 +71,23 @@ def _uniform(gen, like: torch.Tensor, shard=None) -> torch.Tensor:
 def _any_running(phase: torch.Tensor, shard: ChainShard | None) -> bool:
     """Whether a chain of the batch (of every rank, when sharded) is not
     DONE."""
-    running = (phase < _PH_DONE).any().to(torch.int32)
-    if shard is not None:
-        dist.all_reduce(running, op=dist.ReduceOp.MAX, group=shard.group)
-    return bool(running)
+    trace.count("slice:reads")
+    with trace.span("slice:read"):
+        running = (phase < _PH_DONE).any().to(torch.int32)
+        if shard is not None:
+            dist.all_reduce(running, op=dist.ReduceOp.MAX, group=shard.group)
+        return bool(running)
 
 
 def _nan_to_ninf(lp: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(lp), float("-inf"), lp)
+
+
+def _evaluate(logprob, x: torch.Tensor) -> torch.Tensor:
+    """One batched ``logprob`` call of the sampler, NaN as −inf."""
+    trace.count("slice:evals")
+    with trace.span("slice:eval"):
+        return _nan_to_ninf(logprob(x))
 
 
 def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
@@ -87,7 +100,7 @@ def _direction_slice(gen, x0, direction, logprob, sigma, step_out,
     """
 
     def dir_lp(z):
-        return _nan_to_ninf(logprob(x0 + z[:, None] * direction))
+        return _evaluate(logprob, x0 + z[:, None] * direction)
 
     upper = sigma * _uniform(gen, x0, shard)
     lower = upper - sigma
@@ -189,7 +202,7 @@ def slice_sample(gen: torch.Generator, x0: torch.Tensor,
         order = torch.argsort(
             draw_rows(torch.rand, gen, (k_chains, dim),
                   torch.empty((), device=x0.device), shard), dim=1)
-        lp = _nan_to_ninf(logprob(x0) if lp0 is None else lp0)
+        lp = _evaluate(logprob, x0) if lp0 is None else _nan_to_ninf(lp0)
         x, counts = x0, []
         for t in range(dim):
             direction = torch.nn.functional.one_hot(

@@ -43,6 +43,8 @@ import functools
 
 import torch
 
+from spearmint_tpu_torch.utils import trace
+
 # The kernels' schedule: the panel width of B1-B4b (the depth of each
 # trailing update; CHOL_PANEL in csrc/shifted_chol.cu), the tile width of
 # every kernel and its sub-block width (CHOL_TILE and CHOL_SUB in
@@ -67,7 +69,7 @@ def ranged(fn):
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
-        with torch.profiler.record_function(fn.__name__):
+        with trace.span(fn.__name__):
             return fn(*args, **kwargs)
 
     return call

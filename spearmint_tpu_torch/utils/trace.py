@@ -27,13 +27,34 @@ before, a session can lose its first k device records (k up to 29 in
 profiled step first launches ``LEAD_IN`` records of its own
 (``lead_in``), which take that loss, and ``check`` refuses a trace in
 which none of them is left.
+
+Beneath the stages the loops that drive the device from the host have
+ranges of their own, one ``<layer>:<phase>`` range a loop step (never one
+an operation): the slice sampler's ``slice:eval`` (its one batched
+evaluation a loop step) and ``slice:read`` (the phase read back to the
+host, and its wait), and L-BFGS's ``lbfgs:ladder`` (the step ladder's
+batched evaluation and its Armijo choice), ``lbfgs:grad`` (each value
+and gradient) and ``lbfgs:update`` (the rest of an iteration).  A kernel
+is drawn under the innermost range open when it launched, so each
+``stage:*`` range keeps a kernel of its own at its start and at its end.
+
+``count`` keeps process-wide host counters (``counters``): ``slice:evals``
+and ``slice:reads``, the ranges above; ``ei:chunks``, candidate chunks of
+the acquisition sweep; ``lbfgs:iters`` and ``lbfgs:useful_iters``,
+counted by the choosers after a step's synchronize: iterations run, and
+for each run the index + 1 of the last iteration in which a lane not yet
+done improved.  ``StageClock`` gives a step's ``stage_times``.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import os
+import time
+
+import torch
 
 # The kernel wrappers (ops/gp_kernels, ops/band), each a range of its name.
 KERNEL_RANGES = ("shifted_logdet_q", "shifted_factor_logdet_q", "logdet_q",
@@ -50,12 +71,73 @@ LEAD_IN_RANGE = "trace:lead_in"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def span(name: str):
+    """A profiler range ``name`` over what runs inside it: what a trace
+    shows of it, on the host and over the device events launched inside
+    it (no cost worth measuring when no profiler runs)."""
+    return torch.profiler.record_function(name)
+
+
+_counts: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the process-wide counter ``name``: a host integer, so
+    counting never reads the device."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of the counters ``count`` keeps, by name."""
+    return dict(_counts)
+
+
+class StageClock:
+    """The seconds of a step's stages, added to ``stage_times`` (a dict;
+    None: nothing is timed) under each stage's name when the step
+    ``close``s the clock.  On the card each stage is a pair of timing
+    events on the device's clock, read after one synchronize at the
+    step's end, so timing a stage neither waits for the device nor takes
+    away the overlap between stages; on the CPU, the host clock."""
+
+    def __init__(self, stage_times: dict | None, device):
+        self.out = stage_times
+        self.device = torch.device(device)
+        self.marks = []     # (name, start, end)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self.out is None:
+            yield
+        elif self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            self.marks.append((name, start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.marks.append((name, t0, time.perf_counter()))
+
+    def close(self) -> None:
+        if self.out is None or not self.marks:
+            return
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        for name, start, end in self.marks:
+            s = start.elapsed_time(end) * 1e-3 if on_card else end - start
+            self.out[name] = self.out.get(name, 0.0) + s
+        self.marks = []
+
+
 def lead_in(device) -> None:
     """``LEAD_IN`` one-element device kernels in the range ``LEAD_IN_RANGE``
     (their values are never read)."""
-    import torch
-
-    with torch.profiler.record_function(LEAD_IN_RANGE):
+    with span(LEAD_IN_RANGE):
         t = torch.empty(1, device=device)
         for _ in range(LEAD_IN):
             t.add_(1.0)
