@@ -10,7 +10,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   1. device   name, count, ``nvidia-smi`` name and power limit, SM clocks;
   2. build    the CUDA kernels from ``spearmint_tpu_torch/ops/csrc``, one
               ``nvcc`` per source, all at once;
-  3. kernels  B1, B2, B3 at every shape the paths below give them: the
+  3. kernels  first the covariance assembly's kernel (A, ``unit_cov``)
+              through ``core/likelihood.unit_cov_matrix`` at the paths'
+              pads, [10, 5120, 5120] (the flagship's 5000 real rows, all
+              three covariances), [10, 1024, 1024] and [10, 512, 512],
+              D = 2, length scales 0.01..10: bit for bit the plain
+              chain's M (``torch.equal``), and timed beside the chain and
+              its bound (the write of M); then
+              B1, B2, B3 at every shape the paths below give them: the
               flagship pad [10, 5120, 5120], the pending pad
               [10, 5248, 5248], the chooser's pad [12, 16, 16] with one
               non-PSD lane, and a ragged [3, 1000, 1000] with one non-PSD
@@ -82,12 +89,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   9. chooser  the port's GPEIOptChooser on Branin over a 300-point grid,
               16 evaluations, seed BRANIN_SEED, best < 3.0; its pads (≤ 28)
               take the small-pad route (the library Cholesky), so no
-              kernel launches;
+              factorization kernel launches (the assembly's kernel does);
  10. constrained_chooser  the port's GPConstrainedEIChooser on a 40-point
               grid with 12 completions (violations where x0 > 0.5), three
               ``next`` calls by three chooser objects resuming one state
               file: each returns an index or an (acq, x) tuple and n_ok >
-              0; at pad 16 no kernel launches (the small-pad route);
+              0; at pad 16 no factorization kernel launches (the
+              small-pad route);
  11. band_chooser  GPEIOptChooser(band_joint_min=2048, chains=10,
               mcmc_iters=10, burnin=5) at 2100 completions (pad 2560), one
               ``next``: an index or an (ei, x) tuple, band mode on, B5
@@ -870,11 +878,71 @@ def check_reproducible(torch, gk, m, d, r, kmat):
         fail(f"ld and q differ between two calls: {same}")
 
 
+def check_unit_cov(torch):
+    """The assembly kernel (A) through ``unit_cov_matrix``'s own route at
+    the pads the paths give it: M bit for bit the plain chain's, and the
+    kernel, the chain and the bound (4·K·N² bytes written) timed.  Returns
+    the flagship shape's record for the kernels line."""
+    from spearmint_tpu_torch.core import kernels as cov
+    from spearmint_tpu_torch.core import likelihood
+    from spearmint_tpu_torch.ops import assembly
+
+    k = FLAGSHIP["chains"]
+    x_all = torch.tensor(make_problem(FLAGSHIP["n"], FLAGSHIP["d"],
+                                      FLAGSHIP["cands"])[0],
+                         dtype=torch.float32, device="cuda")
+    # per-lane, per-dimension length scales 0.01..10: exp underflows to 0
+    # on the short ones
+    ls = torch.logspace(-2, 1, 2 * k, device="cuda").reshape(2, k).T \
+        .contiguous()
+    times = {}
+    for n, pad, kinds in ((FLAGSHIP["n"], 5120, assembly.KINDS),
+                          (1000, 1024, ("Matern52",)),
+                          (450, 512, ("Matern52",))):
+        x = torch.zeros(pad, FLAGSHIP["d"], device="cuda")
+        x[:n] = x_all[:n]
+        mask = torch.arange(pad, device="cuda") < n
+        for name in kinds:
+            fn = cov.KERNELS[name]
+            before = assembly.launches["unit_cov"]
+            m = likelihood.unit_cov_matrix(x, mask, ls, fn)
+            ref = likelihood.unit_cov_matrix_plain(x, mask, ls, fn)
+            equal = bool(torch.equal(m, ref))
+            launched = assembly.launches["unit_cov"] - before
+            a = (x / ls.unsqueeze(-2)).contiguous()
+            jit = likelihood._effective_jitter(pad)
+            kind = assembly.KINDS.index(name)
+            rec = dict(
+                max_abs_err=absmax(m, ref), bitwise_equal=equal,
+                ms=cuda_ms(torch, lambda: assembly.unit_cov(a, mask, jit,
+                                                            kind), 5),
+                route_ms=cuda_ms(torch, lambda: likelihood.unit_cov_matrix(
+                    x, mask, ls, fn), 5),
+                plain_ms=cuda_ms(torch,
+                                 lambda: likelihood.unit_cov_matrix_plain(
+                                     x, mask, ls, fn), 3),
+                bound_ms=1e3 * 4.0 * k * pad * pad / PEAK_BYTES,
+                bound_by="bytes",
+                # no library routine builds a covariance matrix
+                library_ms=None)
+            emit({"phase": "kernels", "case": "unit_cov", "kernel": "A",
+                  "covariance": name, "shape": [k, pad, pad], "n_real": n,
+                  "launched": launched, **rec})
+            if not equal or launched != 1:
+                fail(f"unit_cov at [{k}, {pad}, {pad}] {name}: equal "
+                     f"{equal}, {launched} launches")
+            times[(pad, name)] = rec
+            del m, ref, a
+    return {key: v for key, v in times[(5120, "Matern52")].items()
+            if key != "bitwise_equal"}
+
+
 def check_kernels(torch, gk):
-    """B1-B3 against plain versions and float64 at every shape the main
-    paths give them, and timed at the flagship shape; returns per-kernel
-    records (without launch counts) for the kernels line."""
-    records = {}
+    """The assembly kernel, then B1-B3 against plain versions and float64
+    at every shape the main paths give them, and timed at the flagship
+    shape; returns per-kernel records (without launch counts) for the
+    kernels line."""
+    records = {"A": check_unit_cov(torch)}
 
     # (a) the flagship pad, then the pending flagship's augmented pad, the
     # chooser loop's pad 16 (one tile below a panel) with a non-PSD lane,
@@ -1120,10 +1188,17 @@ def pending_witness(torch, args, samples):
 
 
 def reset_launches():
-    from spearmint_tpu_torch.ops import band, gp_kernels
+    from spearmint_tpu_torch.ops import assembly, band, gp_kernels
 
     gp_kernels.reset_launches()
     band.reset_launches()
+    assembly.reset_launches()
+
+
+def factor_launches(counts):
+    """The launches of the factorization kernels (B1-B5): the covariance
+    assembly's kernel runs on every route, the small-pad route too."""
+    return {k: n for k, n in counts.items() if k != "unit_cov"}
 
 
 def launch_counts():
@@ -1990,8 +2065,8 @@ def branin_loop(torch, seed):
 
 def run_chooser(torch):
     """The Branin loop; its pads (16 to 28) are below ``kernel_ok``, so the
-    gate sends every factorization to the small-pad route and no kernel
-    may be launched."""
+    gate sends every factorization to the small-pad route and no
+    factorization kernel may be launched."""
     reset_launches()
     rec = branin_loop(torch, BRANIN_SEED)
     rec["launches"] = launch_counts()
@@ -1999,7 +2074,7 @@ def run_chooser(torch):
     if rec["evaluations"] != 16 or not rec["best"] < 3.0 \
             or not rec["state_file"]:
         fail(f"chooser loop: {rec}")
-    if max(rec["launches"].values()) != 0:
+    if max(factor_launches(rec["launches"]).values()) != 0:
         fail(f"chooser loop: a kernel was launched below pad 512: {rec}")
     return rec
 
@@ -2057,8 +2132,10 @@ def run_constrained_chooser(torch):
                launches=launch_counts(), state_keys=keys,
                seconds=time.perf_counter() - t0)
     emit(rec)
-    # pad 16 is below kernel_ok: the gate's route launches no kernel
-    if max(rec["launches"].values()) != 0 or min(n_oks) <= 0 \
+    # pad 16 is below kernel_ok: the gate's route launches no
+    # factorization kernel
+    if max(factor_launches(rec["launches"]).values()) != 0 \
+            or min(n_oks) <= 0 \
             or "c_ff" not in keys:
         fail(f"constrained chooser: {rec}")
     return rec
@@ -3464,6 +3541,9 @@ def main(argv) -> int:
     pallas = "spearmint_tpu/ops/pallas_gp.py:"
     # id: (wrapper, source, TPU kernel, the path whose run gives launches)
     replaces = {
+        "A": ("unit_cov", src + "unit_cov.cu",
+              "none: core/likelihood.unit_cov_matrix's element-wise chain, "
+              "which XLA fuses", "flagship"),
         "B1": ("shifted_logdet_q", src + "shifted_chol.cu", pallas + "930",
                "flagship"),
         "B2": ("shifted_factor_logdet_q", src + "shifted_chol.cu",

@@ -28,13 +28,16 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures of the entry points: every pointer and the stream are
 # c_void_p (a plain int would cut a 64-bit pointer), sizes are c_int.
-# spm_shifted_chol takes a null dshift for the unshifted kernels (B4).
+# spm_shifted_chol takes a null dshift for the unshifted kernels (B4);
+# spm_unit_cov's jitter is a c_float.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 SOURCES = {
     "shifted_chol": {"spm_shifted_chol": [_P] * 8 + [_I, _I, _I, _P]},
     "tri_inverse": {"spm_tri_inverse": [_P, _P, _I, _I, _P]},
     "cyclic_reduction": {"spm_cyclic_reduction": [_P] * 6 + [_I] * 4
                          + [_L, _P]},
+    "unit_cov": {"spm_unit_cov": [_P] * 3 + [_I] * 4 + [_F, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -40,7 +40,9 @@ is drawn under the innermost range open when it launched, so each
 
 ``count`` keeps process-wide host counters (``counters``): ``slice:evals``
 and ``slice:reads``, the ranges above; ``ei:chunks``, candidate chunks of
-the acquisition sweep; ``lbfgs:iters`` and ``lbfgs:useful_iters``,
+the acquisition sweep; ``assembly:plain``, covariance assemblies on the
+card that took the plain chain and not the kernel
+(``core/likelihood.unit_cov_matrix``); ``lbfgs:iters`` and ``lbfgs:useful_iters``,
 counted by the choosers after a step's synchronize: iterations run, and
 for each run the index + 1 of the last iteration in which a lane not yet
 done improved.  ``StageClock`` gives a step's ``stage_times``.
@@ -56,9 +58,11 @@ import time
 
 import torch
 
-# The kernel wrappers (ops/gp_kernels, ops/band), each a range of its name.
+# The kernel wrappers (ops/gp_kernels, ops/band, ops/assembly), each a
+# range of its name.
 KERNEL_RANGES = ("shifted_logdet_q", "shifted_factor_logdet_q", "logdet_q",
-                 "factor_logdet_q", "tri_inverse", "cr_logdet_q")
+                 "factor_logdet_q", "tri_inverse", "cr_logdet_q",
+                 "unit_cov")
 STAGE_PREFIX = "stage:"
 # Idle seconds at each end of a profiled step on the card: about 10× the
 # largest early skew of the device's timestamps measured on an H100.
@@ -145,9 +149,9 @@ def lead_in(device) -> None:
 
 def kernel_launches() -> dict[str, int]:
     """The kernel wrappers' launch counters, by wrapper name."""
-    from spearmint_tpu_torch.ops import band, gp_kernels
+    from spearmint_tpu_torch.ops import assembly, band, gp_kernels
 
-    return {**gp_kernels.launches, **band.launches}
+    return {**gp_kernels.launches, **band.launches, **assembly.launches}
 
 
 def load(path: str) -> list[dict]:

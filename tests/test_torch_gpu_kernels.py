@@ -27,9 +27,12 @@ give bit-identical ld and q from call to call.  Inputs are M = F Fᵀ/8
 stay near n·eps: tolerances ld 1e-5 and q 1e-4 relative, L 1e-4
 absolute (entries O(1)), w 5e-4 of its largest entry, X 5e-4 absolute
 (entries up to ~3).  Two cases hold the instruments on the card: a
-profiled flagship ``next`` whose trace holds B1-B3's ranges with device
-events, as many as the wrappers counted, and a sweep's loop counters
-(``with_counts``) against the B1 launch counter.
+profiled flagship ``next`` whose trace holds B1-B3's and the assembly's
+ranges with device events, as many as the wrappers counted, and a
+sweep's loop counters (``with_counts``) against the B1 launch counter.
+The covariance assembly's kernel (``ops/assembly.unit_cov``) is held to
+the plain chain bit for bit, for each covariance, and a flagship
+``next`` with it to the same ``next`` with the plain chain.
 """
 
 import numpy as np
@@ -647,11 +650,14 @@ def _harness_like(n=470, seed=2):
 
 def test_profiled_chooser_step_holds_every_kernel_range(cuda, tmp_path):
     """A flagship ``next`` at pad 512 with profile_dir: one trace, whose
-    B1/B2/B3 ranges appear as many times as the wrappers counted launches
+    B1/B2/B3 and assembly ranges appear as many times as the wrappers
+    counted launches
     in the call, each holding device events (the chooser itself raises on
     a trace that lost them)."""
     from spearmint_tpu_torch.choosers import get_chooser
     from spearmint_tpu_torch.utils import trace
+
+    from spearmint_tpu_torch.ops import assembly
 
     gk = cuda
     prof = tmp_path / "prof"
@@ -662,11 +668,14 @@ def test_profiled_chooser_step_holds_every_kernel_range(cuda, tmp_path):
     ch.next(*args)                         # the burn-in, not profiled
     ch.profile_dir = str(prof)
     gk.reset_launches()
+    assembly.reset_launches()
     ch.next(*args)
     (name,) = [f.name for f in prof.iterdir()]
     got = trace.ranges(trace.load(str(prof / name)), trace.KERNEL_RANGES)
-    for k in ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse"):
-        assert gk.launches[k] > 0 and len(got[k]) == gk.launches[k], (k, got)
+    launched = trace.kernel_launches()
+    for k in ("shifted_logdet_q", "shifted_factor_logdet_q", "tri_inverse",
+              "unit_cov"):
+        assert launched[k] > 0 and len(got[k]) == launched[k], (k, got)
         assert min(got[k]) >= 1, (k, got[k])
 
 
@@ -706,3 +715,108 @@ def test_with_counts_on_the_card_equals_b1_launches(cuda):
         h_off, lp_off = sample_hypers_lp(g_off, h_off, lp_off, x, y, m, cfg)
         assert all(torch.equal(a, b) for a, b in zip(h, h_off))
         assert torch.equal(lp, lp_off)
+
+
+# ------------------------------------------------- the covariance assembly
+@pytest.mark.parametrize("cov", ["Matern52", "Matern32", "SquaredExp"])
+@pytest.mark.parametrize("k_batch,n,d,real", [
+    (10, 5120, 2, "prefix5000"), (3, 640, 7, "ragged"), (2, 512, 1, "all"),
+    (10, 1024, 2, "prefix1000"), (2, 1001, 3, "ragged"),
+    (3, 28, 2, "prefix20")],
+    ids=["flagship5120", "pad640_d7_ragged_mask", "pad512_d1",
+         "per_sec_pad1024", "rows_not_float4_aligned1001", "small_pad28"])
+def test_unit_cov_kernel_equals_the_plain_chain_bit_for_bit(cuda, cov,
+                                                            k_batch, n, d,
+                                                            real):
+    """M by the assembly kernel against the plain chain on the card, bit
+    for bit: length scales over 0.01-10 (lane 0 all 0.01, where exp
+    underflows to 0; lane 1 all 10), duplicate points (r2 = 0 off the
+    diagonal); padded rows and columns exactly 0, the diagonal of real
+    rows 1 + jitter."""
+    from spearmint_tpu_torch.core import kernels, likelihood
+    from spearmint_tpu_torch.ops import assembly
+
+    rng = np.random.default_rng(n * d)
+    x = rng.random((n, d)).astype(np.float32)
+    x[1] = x[0]
+    x[7] = x[3]
+    if real == "ragged":
+        mask = rng.random(n) < 0.8
+        mask[-5:] = False
+    elif real == "all":
+        mask = np.ones(n, bool)
+    else:
+        mask = np.arange(n) < int(real[len("prefix"):])
+    x[~mask] = 0.0
+    ls = np.exp(rng.uniform(np.log(0.01), np.log(10.0), (k_batch, d)))
+    ls[0], ls[1] = 0.01, 10.0
+    xt = torch.tensor(x, device="cuda")
+    mt = torch.tensor(mask, device="cuda")
+    lt = torch.tensor(ls.astype(np.float32), device="cuda")
+    kern = kernels.KERNELS[cov]
+    assembly.reset_launches()
+    got = likelihood.unit_cov_matrix(xt, mt, lt, kern)
+    assert assembly.launches["unit_cov"] == 1
+    want = likelihood.unit_cov_matrix_plain(xt, mt, lt, kern)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    del want
+    pad = ~mt
+    assert int(torch.count_nonzero(got[:, pad])) == 0
+    assert int(torch.count_nonzero(got[:, :, pad])) == 0
+    jit = torch.tensor(likelihood._effective_jitter(n), dtype=torch.float32)
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)[:, mt]
+    assert torch.equal(diag, torch.full_like(diag, 1.0) + jit.cuda())
+    # lane 0's short length scales underflow some entries to exactly 0
+    assert int(torch.count_nonzero(got[0][mt][:, mt] == 0)) > 0
+
+
+def test_flagship_next_equals_the_plain_assembly(cuda, tmp_path,
+                                                 monkeypatch):
+    """A flagship ``next`` at n = 5000 (pad 5120), same seed, once with
+    the assembly kernel and once with the route forced to the plain chain:
+    the same answer and the same chain states, bit for bit.  With the
+    kernel, one assembly launch per B1 and B2 launch and no plain route
+    counted; forced plain, no launch and one plain route each."""
+    from spearmint_tpu_torch.choosers import get_chooser
+    from spearmint_tpu_torch.core import likelihood
+    from spearmint_tpu_torch.ops import assembly
+    from spearmint_tpu_torch.utils import trace
+
+    gk = cuda
+    args = _harness_like(n=5000, seed=4)
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(likelihood, "use_unit_cov_kernel",
+                                lambda *a: False)
+        expt = tmp_path / route
+        expt.mkdir()
+        ch = get_chooser("GPEIOptChooser", str(expt),
+                         "burnin=2,lbfgs_iters=10,seed=11,device=cuda")
+        gk.reset_launches()
+        assembly.reset_launches()
+        before = trace.counters().get("assembly:plain", 0)
+        ans = ch.next(*args)
+        torch.cuda.synchronize()
+        with np.load(expt / "GPEIOptChooser_state.npz") as z:
+            states = {k: z[k] for k in z.files}
+        factor = (gk.launches["shifted_logdet_q"]
+                  + gk.launches["shifted_factor_logdet_q"])
+        out[route] = dict(
+            ans=ans, states=states, factor=factor,
+            launched=assembly.launches["unit_cov"],
+            plain=trace.counters().get("assembly:plain", 0) - before)
+    k, p = out["kernel"], out["plain"]
+    assert k["factor"] > 0 and k["launched"] == k["factor"], k
+    assert k["plain"] == 0
+    assert p["launched"] == 0 and p["plain"] == p["factor"] == k["factor"]
+    if isinstance(k["ans"], tuple):
+        assert isinstance(p["ans"], tuple)
+        assert k["ans"][0] == p["ans"][0]
+        assert np.array_equal(k["ans"][1], p["ans"][1])
+    else:
+        assert k["ans"] == p["ans"]
+    assert sorted(k["states"]) == sorted(p["states"])
+    for name, v in k["states"].items():
+        assert np.array_equal(v, p["states"][name]), name

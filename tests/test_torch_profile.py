@@ -109,10 +109,12 @@ def test_empty_profile_dir_runs_no_profiler(tmp_path, monkeypatch):
 
 def test_kernel_wrappers_are_ranges_of_their_names(tmp_path):
     """Every kernel wrapper call is a range under the wrapper's name (on
-    the CPU its plain version runs inside it, with no device event)."""
+    the CPU its plain version runs inside it, with no device event; the
+    assembly kernel has no CPU version, and its call raises inside its
+    range)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from spearmint_tpu_torch.ops import band, gp_kernels as gk
+    from spearmint_tpu_torch.ops import assembly, band, gp_kernels as gk
 
     rng = np.random.default_rng(0)
     f = rng.standard_normal((2, 16, 4)).astype(np.float32)
@@ -129,6 +131,9 @@ def test_kernel_wrappers_are_ranges_of_their_names(tmp_path):
         gk.logdet_q(kmat, r)
         gk.tri_inverse(lmat)
         band.cr_logdet_q(a, bb, torch.ones(2, 32))
+        with pytest.raises(ValueError, match="on the card only"):
+            assembly.unit_cov(torch.zeros(2, 16, 2),
+                              torch.ones(16, dtype=torch.bool), 1e-6, 0)
     path = str(tmp_path / "wrappers.json")
     prof.export_chrome_trace(path)
     got = trace.ranges(trace.load(path), trace.KERNEL_RANGES)

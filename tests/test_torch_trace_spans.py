@@ -28,6 +28,19 @@ STAGES = {
                                "lbfgs"},
 }
 FLAGSHIPS = ("GPEIOptChooser", "GPEIperSecChooser")
+# The benchmark's trace reader labels an idle gap with the innermost host
+# range that holds it, looking back at most this many ranges
+# (portbench/tracing._innermost): a gap directly under ``stage:mcmc`` late
+# in the stage keeps its label only while fewer ranges start inside the
+# stage before it.
+READER_LOOK_BACK = 512
+# The wrapper ranges one marginal evaluation opens on the card and not on
+# the CPU, where no kernel runs: B1's and the covariance assembly's.
+CARD_WRAPPERS = ("shifted_logdet_q", "unit_cov")
+# The largest profiled suggestion of the benchmark's per_sec cell (both
+# families, H100; PERF.md §3): B1 launches, slice:eval and slice:read
+# ranges inside stage:mcmc.
+CELL_B1, CELL_EVALS, CELL_READS = 113, 111, 117
 
 
 def _problem(seed=0, n_grid=24, n_done=8, violations=False):
@@ -109,6 +122,31 @@ def test_each_stage_range_opens_and_closes_on_its_own_work(tmp_path, name):
                         key=lambda r: r["ts"])
             assert inner["name"] == st["name"], (st["name"], op["name"],
                                                  inner["name"])
+
+
+@pytest.mark.parametrize("name", FLAGSHIPS)
+def test_mcmc_stage_ranges_stay_inside_the_trace_readers_look_back(
+        tmp_path, name):
+    """The ranges that start inside ``stage:mcmc`` are the sampler's own,
+    one an evaluation and one a read as counted; on the card each marginal
+    evaluation adds B1's and the assembly's wrapper ranges.  So the
+    per_sec cell's largest profiled suggestion opens 454 ranges in the
+    stage, and it would take a tenth more evaluations to reach the
+    reader's look-back."""
+    events, ev = _traced_call(tmp_path, name)
+    ranges = _annotations(events)
+    (st,) = [r for r in ranges if r["name"] == trace.STAGE_PREFIX + "mcmc"]
+    inside = {}
+    for r in ranges:
+        if r is not st and st["ts"] <= r["ts"] <= st["ts"] + st["dur"]:
+            inside[r["name"]] = inside.get(r["name"], 0) + 1
+    assert inside == {"slice:eval": ev["counts"]["slice:evals"],
+                      "slice:read": ev["counts"]["slice:reads"]}
+    assert set(CARD_WRAPPERS) <= set(trace.KERNEL_RANGES)
+    on_card = CELL_EVALS + CELL_READS + len(CARD_WRAPPERS) * CELL_B1
+    assert on_card == 454
+    per_b1 = on_card / CELL_B1
+    assert 1.1 * CELL_B1 * per_b1 < READER_LOOK_BACK
 
 
 @pytest.mark.parametrize("name", sorted(STAGES))
