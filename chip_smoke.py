@@ -130,9 +130,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
               rows added, the suggestions seeing 0, 1 and 2 pending rows,
               and B2 and B3 launched at the augmented pad 640 on the
               second and third;
- 13. b1_split one B1 call at [10, 5120, 5120] under ``torch.profiler``,
-              its device time by kernel name (trailing, diagonal, panel,
-              copy).
+ 13. b1_split one call each of B1, B2, B4a and B4b at [10, 5120, 5120]
+              under ``torch.profiler``, its device time by kernel name
+              (trailing, diagonal, panel, copy); the trailing update's ms a
+              call, its launches a call and its TFLOP/s go into those
+              kernels' records of the kernels line.
  14. distributed  the multi-GPU paths, run by two ranks that share the
               card: this script started again twice (``--rank r --world 2
               --store FILE --out DIR``), joined by gloo through a
@@ -765,39 +767,45 @@ def check_b5(torch):
     return rec
 
 
+def trailing_launches(n, panel, tile):
+    """(tiles a lane, depth) of each trailing launch of spm_shifted_chol at
+    n, in its order: in a panel wider than the tile its next tile's
+    columns (depth tile), and after each panel the lower triangle of tiles
+    beyond it (depth panel)."""
+    out = []
+    for k0 in range(0, n, panel):
+        k1 = min(k0 + panel, n)
+        for s0 in range(k0, k1, tile):
+            if s0 + tile < k1:
+                out.append((-(-(n - s0 - tile) // tile), tile))
+        if k1 < n:
+            m = -(-(n - k1) // tile)
+            out.append((m * (m + 1) // 2, k1 - k0))
+    return out
+
+
 def schedule_bytes(k, n, panel, tile):
     """Bytes that spm_shifted_chol's schedule moves through device memory
     at [k, n, n] when every launch reads and writes its own tiles once
     (operands that later tiles of the same launch read again are taken to
-    hit L2): the copy of M (read and written), per tile step the diagonal
-    tile (read; L and L⁻¹ written) and the panel below (read and written),
-    in a panel wider than the tile its next columns (read and written),
-    and per panel the lower trailing tiles (read and written)."""
-    floats = 2 * n * n
-    for k0 in range(0, n, panel):
-        k1 = min(k0 + panel, n)
-        for s0 in range(k0, k1, tile):
-            s1 = min(s0 + tile, n)
-            floats += 3 * tile * tile + 2 * (n - s1) * tile
-            if s1 < k1:
-                floats += 2 * (n - s1) * tile
-        m = -(-(n - k1) // tile)
-        floats += 2 * m * (m + 1) // 2 * tile * tile
+    hit L2): the copy of M's first panel of columns (read and written), per
+    tile step the diagonal tile (read; L and L⁻¹ written) and the panel
+    below (read; its transpose written to the strip above), and each
+    trailing launch's tiles of C (read and written)."""
+    floats = 2 * n * min(panel, n)
+    for s0 in range(0, n, tile):
+        s1 = min(s0 + tile, n)
+        floats += 3 * tile * tile + 2 * (n - s1) * tile
+    for tiles, _ in trailing_launches(n, panel, tile):
+        floats += 2 * tiles * tile * tile
     return 4.0 * k * floats
 
 
 def trailing_flop(k, n, panel, tile):
     """Flops of the trailing launches as scheduled: every tile of each
-    update is a full tile x tile x depth product (2 flops an FMA), and in
-    a panel wider than the tile the next columns' updates at depth tile."""
-    flop = 0
-    for k0 in range(0, n, panel):
-        k1 = min(k0 + panel, n)
-        for s0 in range(k0, k1 - tile, tile):
-            flop += -(-(n - s0 - tile) // tile) * tile ** 3
-        m = -(-(n - k1) // tile)
-        flop += m * (m + 1) // 2 * tile * tile * (k1 - k0)
-    return 2.0 * k * flop
+    launch a full tile x tile x depth product (2 flops an FMA)."""
+    return 2.0 * k * sum(tiles * tile * tile * depth for tiles, depth
+                         in trailing_launches(n, panel, tile))
 
 
 def is_range(name):
@@ -847,22 +855,44 @@ def device_ms_by_kernel(torch, fn):
                                                 key=lambda kv: -kv[1])}
 
 
-def b1_split(torch, gk, rec):
-    """One B1 call at [10, 5120, 5120] under ``torch.profiler``, its device
-    time by kernel name beside the call's time and bound from ``rec`` (the
-    kernel_times record), the schedule's own device-memory floor and the
-    trailing launches' flops.  Run after the paths, so that none of their
+def b1_split(torch, gk, records):
+    """One call each of B1, B2, B4a and B4b at [10, 5120, 5120] under
+    ``torch.profiler``, its device time by kernel name; B1's record beside
+    the call's time and bound, the schedule's own device-memory floor and
+    the trailing launches' flops.  Adds to each kernel's record (for the
+    kernels line) the trailing update's ms and launches a call and its
+    rate: the useful K n³/3 flops (``trailing_tflops_useful``) and the
+    flops as scheduled, whole diagonal tiles included (``trailing_tflops``),
+    over its device time.  Run after the paths, so that none of their
     timed reps follows a first profiler session."""
     k, n = FLAGSHIP["chains"], 5120
     m, d, r = well_conditioned(torch, k, n, seed=0)
-    emit({"phase": "b1_split", "shape": [k, n, n],
-          "panel": gk.CHOL_PANEL, "tile": gk.CHOL_TILE,
-          "device_ms_count": device_ms_by_kernel(
-              torch, lambda: gk.shifted_logdet_q(m, d, r)),
-          "ms": rec["ms"], "bound_ms": rec["bound_ms"],
-          "schedule_bytes_ms": 1e3 * schedule_bytes(
-              k, n, gk.CHOL_PANEL, gk.CHOL_TILE) / PEAK_BYTES,
-          "trailing_flop": trailing_flop(k, n, gk.CHOL_PANEL, gk.CHOL_TILE)})
+    kmat = (m + torch.diag_embed(d)).contiguous()
+    flop = trailing_flop(k, n, gk.CHOL_PANEL, gk.CHOL_TILE)
+    calls = {"B1": lambda: gk.shifted_logdet_q(m, d, r),
+             "B2": lambda: gk.shifted_factor_logdet_q(m, d, r),
+             "B4a": lambda: gk.logdet_q(kmat, r),
+             "B4b": lambda: gk.factor_logdet_q(kmat, r)}
+    for name, fn in calls.items():
+        split = device_ms_by_kernel(torch, fn)
+        t_ms, t_count = split.get("trailing_kernel", [float("nan"), 0])
+        records[name].update(
+            trailing_ms=t_ms, trailing_launches=t_count,
+            trailing_tflops_useful=k * n ** 3 / 3.0 / t_ms / 1e9,
+            trailing_tflops=flop / t_ms / 1e9)
+        rec = records[name]
+        emit({"phase": "b1_split", "kernel": name, "shape": [k, n, n],
+              "panel": gk.CHOL_PANEL, "tile": gk.CHOL_TILE,
+              "device_ms_count": split, "ms": rec["ms"],
+              "bound_ms": rec["bound_ms"],
+              "schedule_bytes_ms": 1e3 * schedule_bytes(
+                  k, n, gk.CHOL_PANEL, gk.CHOL_TILE) / PEAK_BYTES,
+              "trailing_flop": flop,
+              **{key: rec[key] for key in (
+                  "trailing_ms", "trailing_launches",
+                  "trailing_tflops_useful", "trailing_tflops")}})
+        if t_count == 0:
+            fail(f"{name}: no trailing_kernel in its profiled call")
 
 
 def check_reproducible(torch, gk, m, d, r, kmat):
@@ -3528,7 +3558,7 @@ def main(argv) -> int:
                  5)["launches"],
              "lite_branin": run_lite(torch)["launches"],
              **run_distributed(torch)}
-    b1_split(torch, gk, records["B1"])
+    b1_split(torch, gk, records)
     emit({"phase": "profiler_sessions_before_profile_dir",
           "opened_by_earlier_phases": PROFILER_SESSIONS[0],
           "warm_sessions_b1_events_and_lead_in_lost": warm_profiler_sessions(

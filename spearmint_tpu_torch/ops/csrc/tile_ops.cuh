@@ -1,5 +1,8 @@
 // Device routines shared by the port's kernels: shifted_chol.cu (B1, B2,
-// B4a, B4b), tri_inverse.cu (B3) and cyclic_reduction.cu (B5).
+// B4a, B4b), tri_inverse.cu (B3) and cyclic_reduction.cu (B5).  B1-B4b's
+// trailing update no longer uses tile_product: shifted_chol.cu's
+// trailing_kernel has its own loop, over operands that are already
+// depth-major in device memory; its panel step, B3 and B5 still use it.
 //
 // Every kernel works on 128x128 tiles (CHOL_TILE) with 256 threads:
 //   * tile_product / tile_accumulate: a 128x128 output tile, 8x8 outputs

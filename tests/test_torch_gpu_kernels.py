@@ -32,7 +32,9 @@ ranges with device events, as many as the wrappers counted, and a
 sweep's loop counters (``with_counts``) against the B1 launch counter.
 The covariance assembly's kernel (``ops/assembly.unit_cov``) is held to
 the plain chain bit for bit, for each covariance, and a flagship
-``next`` with it to the same ``next`` with the plain chain.
+``next`` with it to the same ``next`` with the plain chain.  B1's and
+B2's outputs are held bit for bit to digests that the per-panel trailing
+schedule they replaced produced (``PARENT_DIGESTS``), at five shapes.
 """
 
 import numpy as np
@@ -820,3 +822,84 @@ def test_flagship_next_equals_the_plain_assembly(cuda, tmp_path,
     assert sorted(k["states"]) == sorted(p["states"])
     for name, v in k["states"].items():
         assert np.array_equal(v, p["states"][name]), name
+
+
+# ------------------------------------- B1 and B2 against the parent's bits
+# sha256 of the outputs of B1 (ld, q) and B2 (ld, q, L, w), in that order,
+# each as its float32 bytes.  Made on an H100 80GB HBM3 by the per-panel
+# schedule that B1-B4b ran before the persistent trailing kernel (one
+# launch of ``trailing_kernel`` per panel over its lower 128x128 tiles,
+# each tile a ``tile_product`` of depth 256; the diagonal and panel steps
+# as now): ``_exact_case`` below, then ``_digests``.  The trailing update
+# keeps every element's product sum as it was (fmaf over the depth in
+# increasing order from 0, subtracted once), so these stay its bits.
+PARENT_DIGESTS = {
+    "flagship_pad5120_real5000": {
+        "b1": "3af886bf218cbf57dfa7e1e36977de218c16dd7789735bde8361f18b70fcdd55",
+        "b2": "e90f4096dd1a78cc668d911c516ea7dfe712cf85a5d2e552ee11e606e76ce9b6"},
+    "ragged1001": {
+        "b1": "ee9fcc3875e7bc2fa79918d8c77f9286ab69d30fec61fccf2e7b529db54622e5",
+        "b2": "c5f38761a1e89747b6bc298b1a0f06e68e25c5c8b6a19b999cb885601ca912df"},
+    "five_tiles640": {
+        "b1": "7d015d284dc01a6fbf84adb0d0db491c435f434d55a32a61cc3f95c3f394e78c",
+        "b2": "105f96ece29d3e421c74cbbec6fc62285507a1ddbcbb91f51c42af597ac3ad54"},
+    "one_panel256": {
+        "b1": "e323507d8626e033d26417aa2012f56ef9ad49a7e9a113069f5e9d944c454b31",
+        "b2": "50f02b555f51c2a929324b12c5bebb07345064b369ca7c5fcf65168659d7f20c"},
+    "chooser_pad16_non_psd_lane": {
+        "b1": "294cdc25aaadf552de76b5a2c035ecba3d20aac75bf0ddca8662c4bf474f7e5b",
+        "b2": "5a3bb114015ff3b192d7d4c2fe34862988f41b93cc3581e079cb2d076658b5b8"},
+}
+
+EXACT_CASES = {
+    # [K, n, n], real rows, seed, lane made indefinite
+    "flagship_pad5120_real5000": (10, 5120, 5000, 51, None),
+    "ragged1001": (3, 1001, 1001, 52, None),
+    "five_tiles640": (2, 640, 640, 53, None),
+    "one_panel256": (1, 256, 256, 54, None),
+    "chooser_pad16_non_psd_lane": (12, 16, 16, 55, 5),
+}
+
+
+def _exact_case(k_batch, n, n_real, seed, bad_lane):
+    """M = F Fᵀ/8 with integer F in [-8, 8] (rank 8: every entry an exact
+    float32, whatever order a library sums in), shifts in [0.1, 0.4] and
+    r ~ N(0, 1) from numpy's frozen ``RandomState``; rows past n_real
+    padded (M = 0, shift 1, r = 0); ``bad_lane`` gets one shift of -1e4,
+    which makes it indefinite."""
+    rs = np.random.RandomState(seed)
+    f = rs.randint(-8, 9, size=(k_batch, n_real, 8)).astype(np.float64)
+    m = np.zeros((k_batch, n, n), np.float32)
+    m[:, :n_real, :n_real] = (f @ f.transpose(0, 2, 1)) / 8
+    d = np.ones((k_batch, n), np.float32)
+    d[:, :n_real] = rs.uniform(0.1, 0.4, (k_batch, n_real))
+    r = np.zeros((k_batch, n), np.float32)
+    r[:, :n_real] = rs.standard_normal((k_batch, n_real))
+    if bad_lane is not None:
+        d[bad_lane, n_real // 2] = -1e4
+    return [torch.tensor(a, device="cuda") for a in (m, d, r)]
+
+
+def _sha(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digests(gk, case):
+    m, d, r = _exact_case(*EXACT_CASES[case])
+    b1 = _sha(*gk.shifted_logdet_q(m, d, r))
+    b2 = _sha(*gk.shifted_factor_logdet_q(m, d, r))
+    return {"b1": b1, "b2": b2}
+
+
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_b1_b2_bits_equal_the_parent_schedule(cuda, case):
+    """B1's and B2's outputs bit for bit the digests the per-panel schedule
+    gave on the card, and two calls bit for bit equal (no atomics)."""
+    first = _digests(cuda, case)
+    assert first == PARENT_DIGESTS[case]
+    assert _digests(cuda, case) == first
